@@ -33,11 +33,6 @@ def run_ffjord_experiment(args, h, run_dir, seed, train_loader, test_loader,
         atol=1.4e-8,
         max_steps=max_steps,
         analytic_vjp=True,
-        # Fused Pallas trial step (augmented CSL dynamics incl. the
-        # analytic Hutchinson product) on accelerators; skipped for tiny
-        # state dims (2-D gaussian) where VMEM residency buys nothing and
-        # lane padding dominates.
-        fused=jax.default_backend() != "cpu" and input_dim >= 8,
     )
     x0 = jnp.asarray(train_loader.first_batch())
     params = ff.init(jax.random.PRNGKey(seed), x0)
@@ -137,7 +132,7 @@ def run_ffjord_experiment(args, h, run_dir, seed, train_loader, test_loader,
         "inference_runtimes": infer_times,
         "sampling_time": sampling_time,
         **provenance(train_loader, solver="tsit5", mode="adjoint",
-                     fused=ff.fused, rtol=ff.rtol, atol=ff.atol,
+                     rtol=ff.rtol, atol=ff.atol,
                      regularize=regularize),
         **health.results(),
     }, params=state.params)

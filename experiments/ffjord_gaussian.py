@@ -1,6 +1,6 @@
 """FFJORD density estimation on the 2-D ring-of-Gaussians mixture.
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/ffjord_gaussian.jl): 3 ConcatSquashLinear layers
 (2->16->16->2, softplus) with the analytic Hutchinson VJP (:48-106),
 Tsit5 at rtol=atol=1.4e-8, WeightDecay(1e-5)+ADAM(4e-2) (:132), lambda

@@ -1,6 +1,6 @@
 """FFJORD density estimation on MiniBooNE (43-D tabular data).
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/ffjord_tabular.jl): CSL MLP 43->100->100->43 with analytic
 Hutchinson VJP (:78-106,116), Tsit5 at rtol=atol=1.4e-8,
 WeightDecay(1e-5)+ADAM(1e-2) (:133), lambda annealed 5e3 -> 1e3

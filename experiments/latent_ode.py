@@ -1,6 +1,6 @@
 """Physionet latent ODE: irregular time-series interpolation.
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/latent_ode.jl): a masked GRU-Bayes encoder run backwards over
 the observation sequence (:39-99), Chain(100->50 tanh->40) to the latent
 (:112), a latent-20 ODE with 8 alternating Dense(20<->50, tanh) dynamics
@@ -13,7 +13,6 @@ decoder (:148). Loss = -(masked Gaussian LL (sigma=0.01) - annealed KL)
 import functools
 import time
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from common import (HealthMonitor, Timer, block, finish, guarded_train_step, provenance,
@@ -23,6 +22,7 @@ from regneuralde_tpu.data import load_physionet
 from regneuralde_tpu.models import (
     MLP,
     AlternatingMLP,
+    Dense,
     LatentGRU,
     LatentTimeSeriesModel,
     NeuralODE,
@@ -90,13 +90,10 @@ def main():
         atol=args.atol if args.atol is not None else 1.4e-8,
         max_steps=max_steps,
         saveat=saveat,
-        # Fused Pallas trial step (generic builder) on accelerators.
         # --per-sample gives every series its own adaptive controller
-        # (honest per-sample NFE over the shared saveat grid); it uses its
-        # own unfused vmap engine. --compensated-eest (round 5) swaps in
-        # the double-f32 estimator arithmetic — unfused generic sweep.
-        fused=(jax.default_backend() != "cpu" and not per_sample
-               and not args.compensated_eest),
+        # (honest per-sample NFE over the shared saveat grid).
+        # --compensated-eest swaps in the double-f32 estimator arithmetic
+        # (generic sweep only).
         per_sample=per_sample,
         compensated_eest=args.compensated_eest,
     )
@@ -104,7 +101,7 @@ def main():
         rnn=LatentGRU(in_dim=37, hidden=40, latent_dim=50),
         enc=MLP(features=(50, 2 * 20)),
         node=node,
-        dec=nn.Dense(37),
+        dec=Dense(37),
     )
     sample = next(iter(train_loader))
     x0 = build_inputs(jnp.asarray(sample[0]), jnp.asarray(sample[1]),
@@ -260,7 +257,7 @@ def main():
         "train_runtimes": train_times,
         "inference_runtimes": infer_times,
         **provenance(train_loader, solver="tsit5", mode="adjoint",
-                     fused=node.fused, rtol=node.rtol, atol=node.atol,
+                     rtol=node.rtol, atol=node.atol,
                      regularize=bool(h.get("regularize", False)),
                      reg_type=h.get("type")),
         **health.results(),

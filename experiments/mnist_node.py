@@ -1,6 +1,6 @@
 """MNIST classification with a regularized Neural ODE (flagship experiment).
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/mnist_node.jl): time-dependent MLP dynamics (784 ->(+t) 100
 ->(+t) 784, tanh) under an adaptive Tsit5 solve at rtol=atol=1.4e-8,
 classified by a linear head, trained with logit cross-entropy plus an
@@ -25,7 +25,6 @@ Usage:
 import functools
 import time
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
@@ -34,7 +33,7 @@ from common import (HealthMonitor, Timer, block, finish, guarded_train_step, pro
                     parse_args, setup)
 from regneuralde_tpu import reg
 from regneuralde_tpu.data import load_mnist
-from regneuralde_tpu.models import ClassifierNODE, MLPDynamics, NeuralODE
+from regneuralde_tpu.models import ClassifierNODE, Dense, MLPDynamics, NeuralODE
 from regneuralde_tpu.ops.tableaus import TSIT5
 from regneuralde_tpu.training import (
     Checkpointer,
@@ -94,14 +93,9 @@ def main():
         atol=args.atol if args.atol is not None else 1.4e-8,
         max_steps=max_steps,
         axis_name=axis_name,
-        # Fused Pallas trial step on accelerators; composes with data
-        # parallelism (the kernel reduces the error/stiffness norms to
-        # scalars which the solver psums over the mesh axis). Per-sample
-        # adaptive stepping uses its own (unfused) engine.
-        fused=jax.default_backend() != "cpu" and not per_sample,
         per_sample=per_sample,
     )
-    clf = ClassifierNODE(None, node, nn.Dense(10))
+    clf = ClassifierNODE(None, node, Dense(10))
     key = jax.random.PRNGKey(seed)
     x0, _ = train_loader.first_batch()
     params = clf.init(key, jnp.asarray(x0))
@@ -247,7 +241,7 @@ def main():
         "train_runtimes": train_times,
         "inference_runtimes": infer_times,
         **provenance(train_loader, solver="tsit5", mode="adjoint",
-                     fused=node.fused, rtol=node.rtol, atol=node.atol,
+                     rtol=node.rtol, atol=node.atol,
                      regularize=bool(h.get("regularize", False)),
                      reg_type=h.get("type")),
         **health.results(),

@@ -1,18 +1,17 @@
 """MNIST classification with a regularized Neural SDE.
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/mnist_nsde.jl): Dense(784->32) encoder, drift 32->64(tanh)->32,
 diagonal diffusion Dense(32->32), Dense(32->10) head. Adaptive SRI solve at
 rtol=atol=1.4e-1, trained with 1 Monte-Carlo trajectory and evaluated with
 10 (mnist_nsde.jl:100,154-155). Regularizers: error_est (lambda 10, mean)
 or stiff_est (lambda 0.1, mean) (:45-65). Unlike the reference — whose SDE
-path only runs on CPU (:11-13) — this runs on the TPU like everything else.
+path only runs on CPU (:11-13) — this runs on the accelerator like everything else.
 """
 
 import functools
 import time
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
@@ -21,7 +20,7 @@ from common import (HealthMonitor, Timer, block, finish, guarded_train_step, pro
                     parse_args, setup)
 from regneuralde_tpu import reg
 from regneuralde_tpu.data import load_mnist
-from regneuralde_tpu.models import MLP, ClassifierNSDE, NeuralSDE
+from regneuralde_tpu.models import MLP, ClassifierNSDE, Dense, NeuralSDE
 from regneuralde_tpu.training import (
     Checkpointer,
     create_train_state,
@@ -59,16 +58,12 @@ def main():
         rtol=1.4e-1,
         atol=1.4e-1,
         max_steps=max_steps,
-        # fused=True (ops.pallas_sde whole-solve) is available but NOT
-        # the default: at this workload's ~5 trial steps the solve is
-        # draw-generation-bound and the fused step measured neutral
-        # (2.00 ms either way on one v5e) — see BASELINE.md.
         # --per-sample: each Monte-Carlo trajectory in the classifier's
         # fan-out gets its own controller and Brownian bridge — one
         # unlucky trajectory no longer forces small steps on all of them.
         per_sample=per_sample,
     )
-    clf = ClassifierNSDE(nn.Dense(32), nsde, nn.Dense(10))
+    clf = ClassifierNSDE(Dense(32), nsde, Dense(10))
     x0, _ = train_loader.first_batch()
     params = clf.init(jax.random.PRNGKey(seed), jnp.asarray(x0))
 

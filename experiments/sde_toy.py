@@ -1,6 +1,6 @@
 """Toy 2-D SDE fit: match trajectory means/variances of a ground-truth SDE.
 
-TPU-native rebuild of the reference experiment (reference:
+JAX rebuild of the reference experiment (reference:
 experiments/sde_toy_problem.jl): drift Chain(x -> x^3, 2->50 tanh->2),
 diagonal diffusion Dense(2,2) (:45-46), adaptive SRI solve at
 rtol=atol=3e-1 with 30 saveat points on [0,1] (:50-59), AdaBelief(0.01)
@@ -15,7 +15,6 @@ synthetic SDE as fallback; results.yml records which (``data_source``).
 
 import time
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,17 +22,23 @@ from common import (HealthMonitor, Timer, block, finish, guarded_train_step, pro
                     parse_args, setup)
 from regneuralde_tpu import reg
 from regneuralde_tpu.data import make_sde_demo
-from regneuralde_tpu.models import NeuralSDE
+from regneuralde_tpu.models import Dense, Module, NeuralSDE
 from regneuralde_tpu.training import create_train_state, sde_toy_optimizer
 
 
-class CubicDrift(nn.Module):
+class CubicDrift(Module):
     """Chain(x -> x.^3, Dense(2,50,tanh), Dense(50,2))."""
 
-    @nn.compact
-    def __call__(self, x):
-        h = jnp.tanh(nn.Dense(50)(x**3))
-        return nn.Dense(2)(h)
+    def _init(self, key, x):
+        k1, k2 = jax.random.split(key)
+        p = {"Dense_0": Dense(50)._init(k1, x**3)[0]}
+        p["Dense_1"] = Dense(2)._init(k2, jnp.tanh(Dense(50)._apply(
+            p["Dense_0"], x**3)))[0]
+        return p, self._apply(p, x)
+
+    def _apply(self, p, x):
+        h = jnp.tanh(Dense(50)._apply(p["Dense_0"], x**3))
+        return Dense(2)._apply(p["Dense_1"], h)
 
 
 def main():
@@ -54,16 +59,13 @@ def main():
 
     nsde = NeuralSDE(
         CubicDrift(),
-        nn.Dense(2),
+        Dense(2),
         tspan=(0.0, 1.0 + np.finfo(np.float32).eps),
         solver="sosri",
         rtol=3e-1,
         atol=3e-1,
         max_steps=max_steps,
         saveat=saveat,
-        # fused=True (whole-solve SRI kernel; handles the cubic drift —
-        # the kernel rebuilds arbitrary param pytrees) is available but
-        # not the default; see BASELINE.md's SDE fusion measurements.
     )
     u0 = jnp.tile(jnp.asarray([[2.0, 0.0]], jnp.float32), (trajectories, 1))
     params = nsde.init(jax.random.PRNGKey(seed), u0)

@@ -1,6 +1,6 @@
-"""regneuralde_tpu: a TPU-native neural differential equation training framework.
+"""regneuralde_tpu: a neural differential equation training framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``avik-pal/RegNeuralDE.jl`` (ICML 2021, "Opening the Blackbox: Accelerating
 Neural Differential Equations by Regularizing Internal Solver Heuristics").
 

@@ -41,7 +41,10 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists() and not _build():
+    # Always run make: a no-op when the library is current, and a rebuild
+    # from the committed sources whenever a copied tree brought a stale or
+    # foreign binary along.
+    if not _build():
         return None
     lib = ctypes.CDLL(str(_LIB_PATH))
     lib.rnde_load_npy.restype = ctypes.c_void_p

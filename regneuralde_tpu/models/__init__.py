@@ -19,12 +19,15 @@ from regneuralde_tpu.models.classifiers import (
 from regneuralde_tpu.models.ffjord import FFJORD, FFJORDOutput
 from regneuralde_tpu.models.neural_ode import NeuralDEOutput, NeuralODE
 from regneuralde_tpu.models.neural_sde import NeuralSDE, NeuralSDEOutput
+from regneuralde_tpu.models.nn import Dense, Module
 from regneuralde_tpu.models.time_series import (
     LatentTimeSeriesModel,
     LatentTimeSeriesOutput,
 )
 
 __all__ = [
+    "Dense",
+    "Module",
     "MLP",
     "MLPDynamics",
     "TDChain",

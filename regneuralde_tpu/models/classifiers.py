@@ -1,6 +1,6 @@
 """Composite classifiers: pre-net -> neural DE core -> post-net.
 
-TPU-native counterparts of ``ClassifierNODE`` / ``ClassifierNSDE``
+JAX counterparts of ``ClassifierNODE`` / ``ClassifierNSDE``
 (reference: src/models/supervised_classification.jl). Params are an
 explicit ``{"pre", "de", "post"}`` pytree — the analogue of the
 reference's ``Flux.trainable(m) = (m.p1, m.p2, m.p3)`` convention
@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -29,9 +28,10 @@ class ClassifierNODEOutput(NamedTuple):
 
 class ClassifierNODE:
     """Reference: supervised_classification.jl:2-46. ``pre`` and ``post``
-    are flax modules; ``node`` is a NeuralODE."""
+    are modules with ``init``/``apply`` (``models.nn``); ``node`` is a
+    NeuralODE."""
 
-    def __init__(self, pre: Optional[nn.Module], node: NeuralODE, post: nn.Module):
+    def __init__(self, pre: Optional[Any], node: NeuralODE, post: Any):
         self.pre = pre
         self.node = node
         self.post = post
@@ -72,7 +72,7 @@ class ClassifierNSDE:
     as one big SDE state, and post-net outputs are averaged over the
     trajectory axis (supervised_classification.jl:92-99)."""
 
-    def __init__(self, pre: Optional[nn.Module], nsde: NeuralSDE, post: nn.Module):
+    def __init__(self, pre: Optional[Any], nsde: NeuralSDE, post: Any):
         self.pre = pre
         self.nsde = nsde
         self.post = post

@@ -1,6 +1,6 @@
 """FFJORD continuous normalizing flow on the owned solver core.
 
-TPU-native counterpart of ``TrackedFFJORD`` (reference:
+JAX counterpart of ``TrackedFFJORD`` (reference:
 src/models/ffjord.jl). Matches behaviorally:
 
 * Hutchinson trace estimator with ONE probe ``e ~ N(0, I)`` per solve
@@ -26,7 +26,6 @@ from __future__ import annotations
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -49,7 +48,7 @@ class FFJORDOutput(NamedTuple):
 class FFJORD:
     def __init__(
         self,
-        dynamics: nn.Module,
+        dynamics: Any,
         input_dim: int,
         tspan: Tuple[float, float] = (0.0, 1.0),
         solver: str = "tsit5",
@@ -58,16 +57,10 @@ class FFJORD:
         max_steps: int = 256,
         analytic_vjp: bool = True,
         axis_name: Optional[str] = None,
-        fused: bool = False,
     ):
         """``dynamics`` is called as ``m(z, t)``. With ``analytic_vjp`` the
         module must expose ``forw_n_back(z, t, e) -> (f, eJ)`` (e.g.
-        ``models.basic.CSLDynamics``); otherwise ``jax.vjp`` is used.
-
-        ``fused=True`` (CSLDynamics + tsit5 only) runs each trial step as
-        one VMEM-resident Pallas kernel — all six augmented-dynamics
-        evaluations incl. the analytic Hutchinson product, plus the
-        error/stiffness norm reductions (``ops.pallas_generic``)."""
+        ``models.basic.CSLDynamics``); otherwise ``jax.vjp`` is used."""
         self.dynamics = dynamics
         self.input_dim = input_dim
         self.tspan = tspan
@@ -77,18 +70,6 @@ class FFJORD:
         self.max_steps = max_steps
         self.analytic_vjp = analytic_vjp and hasattr(dynamics, "forw_n_back")
         self.axis_name = axis_name
-        from regneuralde_tpu.models.basic import CSLDynamics as _CSL
-
-        if fused not in (False, True, "step", "solve"):
-            raise ValueError("fused must be False, True, 'step' or 'solve'")
-        if fused and not (
-            solver == "tsit5" and isinstance(dynamics, _CSL) and self.analytic_vjp
-        ):
-            raise ValueError(
-                "fused requires solver='tsit5', CSLDynamics dynamics, "
-                "and analytic_vjp"
-            )
-        self.fused = fused
 
     def init(self, key: jax.Array, x: jnp.ndarray) -> Any:
         t0 = jnp.asarray(self.tspan[0], jnp.float32)
@@ -133,55 +114,6 @@ class FFJORD:
         n_aux = 3 if kinetic_reg else 1
         u0 = jnp.concatenate([x, jnp.zeros((batch, n_aux), x.dtype)], axis=-1)
 
-        if self.fused and mode == "adjoint" and self.axis_name is None:
-            from regneuralde_tpu.ops.pallas_generic import (
-                csl_aug_apply,
-                csl_aug_leaves,
-            )
-            from regneuralde_tpu.ops.pallas_solve import (
-                vmem_estimate,
-                whole_solve_odeint,
-            )
-
-            # Mosaic sublane alignment: misaligned batches FAULT the TPU
-            # worker inside whole-solve kernels (see ops.pallas_solve);
-            # they fall through to the step/unfused engines below.
-            aligned = (batch % 8 == 0
-                       or jax.default_backend() == "cpu")
-            eligible = aligned and (
-                self.fused == "solve"
-                # 28MB preserves this gate's original shape eligibility
-                # after vmem_estimate's round-5 recalibration (20 -> 46
-                # batch-rows; the CSL kernels use the traced-vjp replay
-                # backward, for which the old 12MB gate was tuned).
-                or (self.fused is True
-                    and vmem_estimate(batch, u0.shape[-1]) <= 28 * 2**20)
-            )
-            if eligible:
-                sol = whole_solve_odeint(
-                    self._aug_dynamics(kinetic_reg, e),
-                    csl_aug_apply(self.input_dim, kinetic_reg),
-                    lambda p: csl_aug_leaves(p, e),
-                    u0, self.tspan[0], self.tspan[1], params,
-                    rtol=self.rtol, atol=self.atol,
-                    max_steps=self.max_steps,
-                )
-                return self._finish(sol, x, kinetic_reg)
-
-        stage_sweep = None
-        stage_sweep_bwd = None
-        if self.fused:
-            from regneuralde_tpu.ops.pallas_generic import make_csl_ffjord_sweep
-            from regneuralde_tpu.ops.pallas_mlp import fused_tiling_ok
-
-            # Batches the step-fused kernels cannot tile (no 8-divisible
-            # block and too large for one VMEM block — e.g. an eval
-            # loop's partial final batch) run unfused instead of erroring.
-            if fused_tiling_ok(batch):
-                stage_sweep, stage_sweep_bwd = make_csl_ffjord_sweep(
-                    params, e, self.input_dim, kinetic_reg,
-                    self.rtol, self.atol
-                )
         sol = odeint(
             self._aug_dynamics(kinetic_reg, e),
             u0,
@@ -194,8 +126,6 @@ class FFJORD:
             max_steps=self.max_steps,
             mode=mode,
             axis_name=self.axis_name,
-            stage_sweep=stage_sweep,
-            stage_sweep_bwd=stage_sweep_bwd,
         )
         return self._finish(sol, x, kinetic_reg)
 

@@ -1,6 +1,6 @@
 """NeuralODE layer: a dynamics module integrated by the owned solver core.
 
-TPU-native counterpart of ``TrackedNeuralODE`` (reference:
+JAX counterpart of ``TrackedNeuralODE`` (reference:
 src/models/neural_ode.jl). Differences by design:
 
 * No destructure/rebuild closures — params are an explicit pytree argument
@@ -19,10 +19,10 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from regneuralde_tpu.models.nn import is_module
 from regneuralde_tpu.ops import ODESolution, odeint
 from regneuralde_tpu.ops.ode import StepTelemetry
 
@@ -41,8 +41,10 @@ class NeuralODE:
     """du/dt = f(u, t; p), solved adaptively inside jit.
 
     Args:
-      dynamics: a flax module; called as ``m(x, t)`` when ``time_dep`` else
-        ``m(x)``.
+      dynamics: a module with ``init``/``apply`` (``models.nn``; flax
+        modules work too), applied as ``m(x, t)`` when ``time_dep`` else
+        ``m(x)``; or a plain callable ``f(params, y[, t])`` whose
+        parameters the caller manages (e.g. ``parallel.tp``).
       tspan: default (t0, t1) (reference: [0f0, 1f0]).
       time_dep: whether dynamics takes the solve time (reference:
         neural_ode.jl:55).
@@ -53,7 +55,7 @@ class NeuralODE:
 
     def __init__(
         self,
-        dynamics: nn.Module,
+        dynamics: Any,
         tspan: Tuple[float, float] = (0.0, 1.0),
         time_dep: bool = True,
         solver: str = "tsit5",
@@ -62,7 +64,6 @@ class NeuralODE:
         max_steps: int = 256,
         saveat: Optional[jnp.ndarray] = None,
         axis_name: Optional[str] = None,
-        fused: bool = False,
         per_sample: bool = False,
         compensated_eest: bool = False,
     ):
@@ -77,116 +78,30 @@ class NeuralODE:
         self.axis_name = axis_name
         # Double-f32 embedded-error estimate (ops.compensated): removes
         # the estimator's ARITHMETIC rounding noise at tight tolerances.
-        # Generic (unfused, shared-controller) sweep only.
-        if compensated_eest and (fused or per_sample):
+        # Shared-controller generic sweep only.
+        if compensated_eest and per_sample:
             raise ValueError(
-                "compensated_eest requires fused=False and "
-                "per_sample=False (generic sweep only)")
+                "compensated_eest requires per_sample=False (generic "
+                "sweep only)")
         self.compensated_eest = compensated_eest
         # Per-sample adaptive stepping (torchode-style): every batch
         # element gets its own PI controller and NFE count instead of the
         # reference's one-global-error-norm semantics (see
         # ops.per_sample). ``nfe`` becomes a (batch,) vector and telemetry
         # streams gain a leading batch axis; the reg reductions accept
-        # both. Incompatible with fused kernels (their batch tiling
-        # assumes one shared controller); axis_name needs no step sync in
-        # this mode (each sample is independent), so it is simply not
-        # threaded into the solve.
+        # both. axis_name needs no step sync in this mode (each sample is
+        # independent), so it is simply not threaded into the solve.
         # per_sample may be True (vmap engine, full generality), or the
-        # string "batched" (the per-lane-controller dense engine — 11x
-        # faster on the flagship, final-state 2-D solves only; see
+        # string "batched" (the per-lane-controller dense engine; see
         # ops.per_sample_batched).
         if per_sample not in (False, True, "batched"):
             raise ValueError(
                 "per_sample must be False, True or 'batched', got "
                 f"{per_sample!r}")
         self.per_sample = per_sample
-        # Fused Pallas execution. Two granularities exist:
-        #   "step"  — one kernel per trial step (the whole Tsit5 stage
-        #             sweep VMEM-resident per batch tile; composes with
-        #             axis_name data parallelism via psum'd norm scalars);
-        #   "solve" — ONE kernel per solve direction (the adaptive loop,
-        #             controller, saveat interpolation, and the reverse
-        #             cotangent chain all in-kernel; ops.pallas_solve) —
-        #             fastest for small dynamics, but single-device only
-        #             and the whole batch must fit VMEM.
-        #   "tiled" — the whole-solve kernel with the carry in VMEM
-        #             scratch and the stage sweep per batch tile — for
-        #             batches whose stage stacks exceed VMEM (the MNIST
-        #             flagship). Final-state solves only (no saveat).
-        #   True    — auto: "solve" where eligible, else "tiled" where
-        #             eligible, else "step".
-        # Supported dynamics: MLPDynamics and AlternatingMLP.
-        from regneuralde_tpu.models.basic import (
-            AlternatingMLP as _AltMLP,
-            MLPDynamics as _MLPD,
-        )
-
-        if fused not in (False, True, "step", "solve", "tiled"):
-            raise ValueError(
-                "fused must be False, True, 'step', 'solve' or 'tiled'")
-        if fused and not (
-            solver == "tsit5" and isinstance(dynamics, (_MLPD, _AltMLP))
-        ):
-            raise ValueError(
-                "fused requires solver='tsit5' and MLPDynamics or "
-                "AlternatingMLP dynamics"
-            )
-        # Per-sample + fused (round 5): the per-lane-controller batched
-        # engine rides a LANE-WISE fused stage sweep (per-lane t/dt
-        # columns through the same VMEM-resident Tsit5 kernel —
-        # ops.pallas_mlp.mlp_dynamics_sweep_lanes). MLPDynamics only (the
-        # one dynamics with a hand-written lane-wise kernel); the vmap
-        # engine and whole-solve granularities stay mutually exclusive
-        # with per-sample control (one shared controller is baked into
-        # their loop structure).
-        if per_sample and fused:
-            if not (per_sample == "batched" and isinstance(dynamics, _MLPD)):
-                raise ValueError(
-                    "fused per-sample stepping requires "
-                    "per_sample='batched' and MLPDynamics dynamics "
-                    "(lane-wise fused sweep); construct with fused=False "
-                    "otherwise"
-                )
-        self.fused = fused
-
-    def _whole_solve_parts(self, params):
-        """(apply_fn, flatten, algebra_bwd, algebra_fwd_res) for the
-        whole-solve kernels. ``algebra_bwd`` is the hand-derived reverse
-        chain of the normed stage algebra where one exists (MLPDynamics) —
-        the traced ``jax.vjp`` transpose is ~3x slower in-kernel at the
-        flagship shape (see ops.pallas_mlp._normed_bwd_math) — and None
-        otherwise (the generic path falls back to tracing);
-        ``algebra_fwd_res`` is its residual-capturing forward (saves the
-        stage k's + hidden activations so the pullback skips its own
-        stage recompute)."""
-        from regneuralde_tpu.models.basic import MLPDynamics as _MLPD
-
-        if isinstance(self.dynamics, _MLPD):
-            from regneuralde_tpu.ops.pallas_mlp import (
-                _mlp_k,
-                _split_params,
-                make_normed_algebra_bwd,
-                make_normed_algebra_fwd_res,
-            )
-
-            def apply_fn(t, y, leaves):
-                return _mlp_k(y, t, *leaves)
-
-            return (apply_fn, lambda p: list(_split_params(p)),
-                    make_normed_algebra_bwd(self.rtol, self.atol),
-                    make_normed_algebra_fwd_res(self.rtol, self.atol))
-        from regneuralde_tpu.ops.pallas_generic import (
-            alternating_mlp_apply,
-            alternating_mlp_leaves,
-        )
-
-        depth = self.dynamics.depth
-        return (alternating_mlp_apply(depth),
-                lambda p: alternating_mlp_leaves(p, depth), None, None)
 
     def init(self, key: jax.Array, x: jnp.ndarray) -> Any:
-        if not isinstance(self.dynamics, nn.Module):
+        if not is_module(self.dynamics):
             raise TypeError(
                 "dynamics is a plain callable; its parameters are managed "
                 "externally (e.g. parallel.tp.make_tp_dynamics) — pass them "
@@ -198,7 +113,7 @@ class NeuralODE:
         return self.dynamics.init(key, x)
 
     def _func(self, t, y, p):
-        if not isinstance(self.dynamics, nn.Module):
+        if not is_module(self.dynamics):
             # Plain-callable dynamics: f(params, y, t) / f(params, y) —
             # the tensor-parallel path (parallel.tp) and other externally
             # parameterized dynamics plug in here.
@@ -224,33 +139,13 @@ class NeuralODE:
         if self.per_sample:
             from regneuralde_tpu.ops import odeint_per_sample
 
-            if self.per_sample == "batched":
-                sweep_lanes = None
-                if self.fused:
-                    from regneuralde_tpu.ops.pallas_mlp import (
-                        fused_tiling_ok,
-                        mlp_dynamics_sweep_lanes,
-                    )
-
-                    # Same batch-tiling legality gate as the step-fused
-                    # global path; untileable batches (odd eval batch)
-                    # keep the traced sweep.
-                    if fused_tiling_ok(x.shape[0]):
-                        sweep_lanes = (
-                            lambda t, dt, y, k1, p:
-                            mlp_dynamics_sweep_lanes(t, dt, y, k1, p))
-                sol = odeint_per_sample(
-                    self._func, x, t0, t1, params, engine="batched",
-                    solver=self.solver, rtol=self.rtol, atol=self.atol,
-                    max_steps=self.max_steps, saveat=saveat, mode=mode,
-                    stage_sweep_lanes=sweep_lanes,
-                )
-            else:
-                sol = odeint_per_sample(
-                    self._func, x, t0, t1, params,
-                    solver=self.solver, rtol=self.rtol, atol=self.atol,
-                    max_steps=self.max_steps, saveat=saveat, mode=mode,
-                )
+            sol = odeint_per_sample(
+                self._func, x, t0, t1, params,
+                engine=("batched" if self.per_sample == "batched"
+                        else "vmap"),
+                solver=self.solver, rtol=self.rtol, atol=self.atol,
+                max_steps=self.max_steps, saveat=saveat, mode=mode,
+            )
             value = (jnp.swapaxes(sol.ys, 0, 1)
                      if saveat is not None else sol.y1)
             return NeuralDEOutput(
@@ -258,122 +153,6 @@ class NeuralODE:
                 telemetry=sol.telemetry, solution=sol,
             )
 
-        if self.fused and mode == "adjoint" and self.axis_name is None:
-            from regneuralde_tpu.ops.pallas_solve import (
-                vmem_estimate,
-                vmem_estimate_tiled,
-                whole_solve_odeint,
-                whole_solve_odeint_tiled,
-            )
-
-            n_save = 0 if saveat is None else int(saveat.shape[0])
-            # Mosaic sublane alignment: batches that are not a multiple
-            # of 8 are PADDED with masked rows inside whole_solve_odeint
-            # (round 5; unpadded they fault the TPU worker — measured
-            # round 4 on the SDE twin at (100, 2)). The VMEM estimate
-            # uses the padded batch.
-            batch_pad = x.shape[0] + (-x.shape[0]) % 8
-            # Whole-solve kernels run with a raised 112MB scoped-VMEM
-            # limit (see ops.pallas_solve). vmem_estimate is calibrated
-            # 1:1 against the round-5 Mosaic bisection (the flagship's
-            # measured peak is 84±4MB = its estimate), so gate at 96MB:
-            # 16MB of calibration margin below the hard limit. Shapes
-            # above it route to the tiled/unfused engines instead of
-            # faulting Mosaic at compile time.
-            eligible = (
-                self.fused == "solve"
-                or (self.fused is True
-                    and vmem_estimate(batch_pad, x.shape[-1], n_save)
-                    <= 96 * 2**20)
-            )
-            if eligible:
-                (apply_fn, flatten, alg_bwd,
-                 alg_fwd_res) = self._whole_solve_parts(params)
-                sol = whole_solve_odeint(
-                    self._func, apply_fn, flatten, x, t0, t1, params,
-                    rtol=self.rtol, atol=self.atol,
-                    max_steps=self.max_steps, saveat=saveat,
-                    algebra_bwd=alg_bwd, algebra_fwd_res=alg_fwd_res,
-                )
-                value = (jnp.swapaxes(sol.ys, 0, 1)
-                         if saveat is not None else sol.y1)
-                return NeuralDEOutput(
-                    value=value, nfe=sol.stats.nfe,
-                    telemetry=sol.telemetry, solution=sol,
-                )
-            if self.fused == "tiled" and saveat is not None:
-                raise ValueError(
-                    "fused='tiled' supports final-state solves only "
-                    "(saveat must be None); use fused=True or 'solve'")
-            if saveat is None and (self.fused is True
-                                   or self.fused == "tiled"):
-                # Batch too large for the monolithic kernel: the tiled
-                # whole-solve keeps the carry in VMEM scratch and sweeps
-                # stages per batch tile (final-state solves only).
-                apply_fn, flatten, _alg_bwd, _afr = self._whole_solve_parts(
-                    params)
-                leaves = flatten(params)
-                leaves_bytes = sum(
-                    l.size * l.dtype.itemsize for l in leaves)
-                # Prefer 128-row tiles (full MXU row utilization;
-                # measured faster than 64 at the flagship shape), falling
-                # back to 64 when the batch or VMEM demands it.
-                tile = None
-                for cand in (128, 64):
-                    if (x.shape[0] % cand == 0
-                            and vmem_estimate_tiled(
-                                x.shape[0], x.shape[-1], cand,
-                                leaves_bytes) <= 64 * 2**20):
-                        tile = cand
-                        break
-                if self.fused == "tiled" or tile is not None:
-                    sol = whole_solve_odeint_tiled(
-                        self._func, apply_fn, flatten, x, t0, t1, params,
-                        rtol=self.rtol, atol=self.atol,
-                        max_steps=self.max_steps, tile_rows=tile or 64,
-                    )
-                    return NeuralDEOutput(
-                        value=sol.y1, nfe=sol.stats.nfe,
-                        telemetry=sol.telemetry, solution=sol,
-                    )
-
-        stage_sweep = None
-        stage_sweep_bwd = None
-        from regneuralde_tpu.ops.pallas_mlp import fused_tiling_ok
-
-        # Batches the step-fused kernels cannot tile (no 8-divisible
-        # block and too large for one VMEM block — e.g. an eval loop's
-        # partial final batch) run unfused instead of erroring.
-        if self.fused and fused_tiling_ok(x.shape[0]):
-            # Normed variant: the error/stiffness reductions happen inside
-            # the kernel (NormedSweep scalars; the solver psums them under
-            # axis_name, so fused composes with data parallelism).
-            from regneuralde_tpu.models.basic import MLPDynamics as _MLPD
-
-            if isinstance(self.dynamics, _MLPD):
-                from regneuralde_tpu.ops.pallas_mlp import (
-                    mlp_dynamics_normed_sweep,
-                    mlp_dynamics_normed_sweep_bwd,
-                )
-
-                stage_sweep = lambda t, dt, y, f0, p: mlp_dynamics_normed_sweep(
-                    t, dt, y, f0, p, self.rtol, self.atol
-                )
-                # Direct backward kernel for the fast adjoint path (used
-                # when saveat/axis_name are off).
-                stage_sweep_bwd = (
-                    lambda t, dt, y, k1, p, cts: mlp_dynamics_normed_sweep_bwd(
-                        t, dt, y, k1, p, cts, self.rtol, self.atol
-                    )
-                )
-            else:  # AlternatingMLP via the generic builder
-                from regneuralde_tpu.ops.pallas_generic import (
-                    make_alternating_mlp_sweep,
-                )
-
-                stage_sweep, stage_sweep_bwd = make_alternating_mlp_sweep(
-                    params, self.dynamics.depth, self.rtol, self.atol
-                )
         sol = odeint(
             self._func,
             x,
@@ -387,8 +166,6 @@ class NeuralODE:
             saveat=saveat,
             mode=mode,
             axis_name=self.axis_name,
-            stage_sweep=stage_sweep,
-            stage_sweep_bwd=stage_sweep_bwd,
             compensated_eest=self.compensated_eest,
         )
         if saveat is not None:

@@ -1,20 +1,19 @@
 """NeuralSDE layer: drift + diagonal-diffusion modules over the SDE core.
 
-TPU-native counterpart of ``TrackedNeuralDSDE`` (reference:
+JAX counterpart of ``TrackedNeuralDSDE`` (reference:
 src/models/neural_sde.jl). The reference concatenates both nets' params
 into one flat vector split at ``len`` (neural_sde.jl:17,38) and counts NFE
 with mutable closure counters (neural_sde.jl:46,50); here params are a
 ``{"drift", "diffusion"}`` pytree and the counters fall out of the solver's
 step accounting. Unlike the reference — whose SDE path is pinned to CPU
 arrays (neural_sde.jl:57, experiments/mnist_nsde.jl:11-13) — this runs on
-TPU like everything else.
+the accelerator like everything else.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -42,8 +41,8 @@ class NeuralSDE:
 
     def __init__(
         self,
-        drift: nn.Module,
-        diffusion: nn.Module,
+        drift: Any,
+        diffusion: Any,
         tspan: Tuple[float, float] = (0.0, 1.0),
         time_dep: bool = False,
         solver: str = "sosri",
@@ -52,7 +51,6 @@ class NeuralSDE:
         max_steps: int = 256,
         saveat: Optional[jnp.ndarray] = None,
         axis_name: Optional[str] = None,
-        fused: bool = False,
         per_sample: bool = False,
     ):
         self.drift = drift
@@ -65,20 +63,12 @@ class NeuralSDE:
         self.max_steps = max_steps
         self.saveat = saveat
         self.axis_name = axis_name
-        # Fused whole-solve execution (ops.pallas_sde): the entire
-        # adaptive SRI loop — bridge, stages, controller — as ONE Pallas
-        # kernel per direction. True = auto (route when the state is
-        # 2-D f32 and fits VMEM); "solve" = force. Generic over any
-        # Mosaic-lowerable drift/diffusion (leaves rebuilt in-kernel).
-        if fused not in (False, True, "solve"):
-            raise ValueError("fused must be False, True or 'solve'")
-        self.fused = fused
         # Per-sample adaptive stepping: each batch element (each MC
         # trajectory, after the classifier fan-out) gets its own
         # controller AND its own independently-bridged Brownian path —
         # see ops.per_sample.sdeint_per_sample. nfe1/nfe2 become (batch,)
-        # vectors. Incompatible with fused kernels; axis_name needs no
-        # step sync in this mode and is not threaded into the solve.
+        # vectors. axis_name needs no step sync in this mode and is not
+        # threaded into the solve.
         # per_sample may be True (vmap engine, full generality) or the
         # string "batched" (the per-lane-controller dense engine —
         # ops.per_sample_sde_batched; 2-D states, collapse bridge).
@@ -87,11 +77,6 @@ class NeuralSDE:
                 "per_sample must be False, True or 'batched', got "
                 f"{per_sample!r}")
         self.per_sample = per_sample
-        if per_sample and fused:
-            raise ValueError(
-                "per_sample adaptive stepping is incompatible with fused "
-                "kernels — construct with fused=False"
-            )
 
     def init(self, key: jax.Array, x: jnp.ndarray) -> Any:
         k1, k2 = jax.random.split(key)
@@ -144,48 +129,6 @@ class NeuralSDE:
                 value=value, nfe1=sol.stats.nfe1, nfe2=sol.stats.nfe2,
                 telemetry=sol.telemetry, solution=sol,
             )
-
-        if (self.fused and mode == "adjoint" and self.axis_name is None
-                and self.solver != "em" and brownian == "collapse"):
-            from regneuralde_tpu.ops.pallas_sde import (
-                vmem_estimate_sde,
-                whole_solve_sdeint,
-            )
-
-            leaves = jax.tree_util.tree_leaves(params)
-            supported = (
-                x.ndim == 2 and x.dtype == jnp.float32
-                # Mosaic sublane alignment: misaligned batches are padded
-                # with masked rows inside whole_solve_sdeint (round 5) —
-                # the reference's own sde_toy uses 100 trajectories.
-                and all(l.ndim <= 2 and l.dtype == jnp.float32
-                        for l in leaves)
-            )
-            n_save = 0 if saveat is None else int(saveat.shape[0])
-            leaves_bytes = sum(l.size * l.dtype.itemsize for l in leaves)
-            batch_pad = x.shape[0] + (-x.shape[0]) % 8
-            eligible = supported and (
-                self.fused == "solve"
-                or vmem_estimate_sde(batch_pad, x.shape[-1], n_save,
-                                     leaves_bytes) <= 12 * 2**20
-            )
-            if self.fused == "solve" and not supported:
-                raise ValueError(
-                    "fused='solve' needs a 2-D float32 state and <=2-D "
-                    "float32 parameter leaves")
-            if eligible:
-                sol = whole_solve_sdeint(
-                    self._drift, self._diffusion, x, t0, t1, params,
-                    key=key, solver=self.solver, rtol=self.rtol,
-                    atol=self.atol, max_steps=self.max_steps,
-                    saveat=saveat,
-                )
-                value = (jnp.swapaxes(sol.ys, 0, 1)
-                         if saveat is not None else sol.y1)
-                return NeuralSDEOutput(
-                    value=value, nfe1=sol.stats.nfe1, nfe2=sol.stats.nfe2,
-                    telemetry=sol.telemetry, solution=sol,
-                )
 
         sol = sdeint(
             self._drift,

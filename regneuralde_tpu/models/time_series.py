@@ -1,6 +1,6 @@
 """Latent ODE: VAE-over-dynamics for irregular time series.
 
-TPU-native counterpart of ``LatentTimeSeriesModel`` (reference:
+JAX counterpart of ``LatentTimeSeriesModel`` (reference:
 src/models/time_series.jl): a recurrent encoder consumes the observation
 sequence (backwards in time), an MLP maps to (mu0, logvar) of the initial
 latent, a reparameterized sample is decoded by a Neural ODE at the
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -40,7 +39,7 @@ class LatentTimeSeriesModel:
     to observations. Reference: time_series.jl:40-70.
     """
 
-    def __init__(self, rnn: nn.Module, enc: nn.Module, node: NeuralODE, dec: nn.Module):
+    def __init__(self, rnn: Any, enc: Any, node: NeuralODE, dec: Any):
         self.rnn = rnn
         self.enc = enc
         self.node = node

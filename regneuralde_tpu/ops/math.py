@@ -1,13 +1,18 @@
 """Accuracy-critical elementwise math for the solver's dynamics path.
 
-TPU lowers ``tanh`` to a fast polynomial approximation with ~4e-5 max
-absolute error — 200x worse than CPU libm. Inside an adaptive solver that
-error IS the floor of the embedded error estimate: the controller cannot
-tell approximation noise from local truncation error, so at tight
-tolerances (the reference's rtol=1.4e-8) step sizes stall at the noise
-floor. The exp-based reformulation below costs one ``exp`` and one divide
-and is ~20x more accurate on TPU (2e-6 max abs), directly buying larger
-accepted steps.
+Inside an adaptive solver the activation's approximation error is a floor
+under the embedded error estimate: the controller cannot tell it from
+local truncation error, so at tight tolerances (the reference's
+rtol=1.4e-8) step sizes stall at that floor. ``tanh`` below is an
+exp-based reformulation that costs one ``exp`` and one divide.
+
+Measured on one NVIDIA H100 80GB HBM3 (400 W power limit) with
+``python chip_smoke.py``: over 2^22 float32 points in [-10, 10], the max
+absolute error against float64 is 3.2e-7 for ``jnp.tanh`` and 2.3e-7 for
+this ``tanh`` — both at float32 resolution, so on the GPU the
+replacement is no longer what keeps the floor down. It stays in the MNIST
+dynamics until a run shows native ``tanh`` leaves the flagship's NFE and
+gradient parity unchanged.
 
 (The same spirit as the reference's numerically-stable sigmoid/softplus
 overloads, ffjord_tabular.jl:39-44 — hand-hardened elementwise math where
@@ -22,9 +27,8 @@ import jax
 def tanh(x):
     """Accurate tanh: ``2 * sigmoid(2x) - 1``.
 
-    ~2.5e-6 max abs error on TPU (vs 4.4e-5 for the native lowering),
-    numerically stable in both tails via jax.nn.sigmoid's internal
+    Numerically stable in both tails via jax.nn.sigmoid's internal
     safe-exp, and with the exact derivative everywhere — including x=0,
     where a sign(x)-based reformulation loses the gradient to sign's zero
-    derivative."""
+    derivative. Accuracy on the GPU: see the module docstring."""
     return 2.0 * jax.nn.sigmoid(2.0 * x) - 1.0

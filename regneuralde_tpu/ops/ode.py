@@ -2,7 +2,7 @@
 
 This layer replaces the reference's use of ``OrdinaryDiffEq.solve`` with
 ``SensitivityADPassThrough`` — i.e. "backprop through the solver" with a
-tape AD (reference: src/models/neural_ode.jl:110-144) — with a TPU-native
+tape AD (reference: src/models/neural_ode.jl:110-144) — with an XLA-native
 design:
 
 * The adaptive loop is a **bounded ``lax.scan`` over ``max_steps`` trial
@@ -104,20 +104,6 @@ class _Carry(NamedTuple):
     aux: Any = ()
 
 
-class NormedSweep(NamedTuple):
-    """A ``stage_sweep`` result whose error/stiffness norms were already
-    reduced to sums-of-squares inside the kernel (one VMEM pass; no
-    full-size error/stage arrays ever round-trip HBM). Under data
-    parallelism the three scalars are psum'd, so fused kernels compose
-    with ``axis_name`` — the kernel itself never communicates."""
-
-    y_new: Pytree
-    k_last: Pytree
-    err_ssq: jnp.ndarray  # sum(((err)/(atol+max(|y|,|y_new|)rtol))^2)
-    eig_num_ssq: jnp.ndarray  # sum((k_last - k_prev)^2)
-    eig_den_ssq: jnp.ndarray  # sum((y_new - g_prev)^2)
-
-
 class CompSweep(NamedTuple):
     """A sweep result whose embedded error carries its rounding residual
     as an (hi, lo) double-f32 pair (``odeint(compensated_eest=True)``;
@@ -166,26 +152,6 @@ def _hermite_eval(theta, h, y0, y1, f0, f1):
         )
 
     return jax.tree_util.tree_map(leaf, y0, y1, f0, f1)
-
-
-def _normed_scalars(err_ssq, num_ssq, den_ssq, count, err_dtype):
-    """EEst and eigen_est from the in-kernel sums-of-squares (shared by
-    the generic step and the fast adjoint backward so both stay bitwise
-    identical). Zero-guarded (sqrt'(0)=inf; see ops.norms.hairer_norm)."""
-    eest = jnp.where(
-        err_ssq > 0,
-        jnp.sqrt(jnp.where(err_ssq > 0, err_ssq, 1.0) / count),
-        0.0,
-    )
-    # ratio of RMS norms == ratio of sqrt(ssq) (equal counts)
-    eig_num = jnp.where(
-        num_ssq > 0, jnp.sqrt(jnp.where(num_ssq > 0, num_ssq, 1.0)), 0.0)
-    eig_den = jnp.where(
-        den_ssq > 0, jnp.sqrt(jnp.where(den_ssq > 0, den_ssq, 1.0)), 0.0)
-    eigen_est = jnp.where(
-        eig_den > 0, eig_num / jnp.maximum(eig_den, 1e-30), 0.0
-    ).astype(err_dtype)
-    return eest.astype(err_dtype), eigen_est
 
 
 def _make_step_fn(
@@ -268,8 +234,8 @@ def _make_step_fn(
 
     if compensated and stage_sweep is not None:
         raise ValueError(
-            "compensated_eest applies to the generic (unfused) sweep "
-            "only — construct with fused=False / no stage_sweep")
+            "compensated_eest applies to the generic sweep only — "
+            "construct with no stage_sweep")
     sweep = (stage_sweep if stage_sweep is not None
              else (compensated_sweep if compensated else generic_sweep))
 
@@ -281,26 +247,7 @@ def _make_step_fn(
         dt_eff = jnp.where(is_last, remaining, dt)
 
         res = sweep(t, dt_eff, y, f0, args)
-        if isinstance(res, NormedSweep):
-            # Norms were reduced in-kernel; only scalars remain. psum makes
-            # the fused path DP-composable: every shard sees the global
-            # sums and the controller stays in lockstep.
-            y_new, k_last = res.y_new, res.k_last
-            err_ssq = res.err_ssq.astype(err_dtype)
-            num_ssq = res.eig_num_ssq.astype(err_dtype)
-            den_ssq = res.eig_den_ssq.astype(err_dtype)
-            count = jnp.asarray(
-                sum(l.size for l in jax.tree_util.tree_leaves(y)), err_dtype
-            )
-            if axis_name is not None:
-                err_ssq = lax.psum(err_ssq, axis_name)
-                num_ssq = lax.psum(num_ssq, axis_name)
-                den_ssq = lax.psum(den_ssq, axis_name)
-                count = lax.psum(count, axis_name)
-            eest, eigen_est = _normed_scalars(
-                err_ssq, num_ssq, den_ssq, count, err_dtype
-            )
-        elif isinstance(res, CompSweep):
+        if isinstance(res, CompSweep):
             from regneuralde_tpu.ops.compensated import (
                 compensated_error_ssq,
             )
@@ -669,11 +616,11 @@ def _make_adjoint_solve(
         # PRECISION IS LOAD-BEARING: this function is traced lazily during
         # backward-pass construction, OUTSIDE the default_matmul_precision
         # context that wrapped the forward solve. The replay re-traces the
-        # dynamics' contractions here — at the TPU's bf16 default they
-        # would feed the EEst/controller pullback ~4e-3 relative noise,
-        # which the ~1/tol amplification turns into garbage gradients
-        # (observed: 60x-wrong params grads at rtol=1e-5 on TPU; CPU is
-        # immune because its default matmul is exact f32).
+        # dynamics' contractions here — at the GPU's TF32 default (10-bit
+        # mantissa, ~1e-3 relative) they would feed the EEst/controller
+        # pullback noise that the ~1/tol amplification turns into garbage
+        # gradients. CPU is immune (its default matmul is exact f32);
+        # the chip test in tests/test_adjoint.py pins this on the card.
         if bwd_precision is not None:
             with jax.default_matmul_precision(bwd_precision):
                 return _solve_bwd_impl(res, cts)
@@ -755,343 +702,6 @@ def _make_adjoint_solve(
     return solve
 
 
-class _FastHist(NamedTuple):
-    t: jnp.ndarray
-    dt: jnp.ndarray
-    qold: jnp.ndarray
-    err_ssq: jnp.ndarray  # the NormedSweep scalars, so the backward never
-    num_ssq: jnp.ndarray  # has to re-run the forward kernel
-    den_ssq: jnp.ndarray
-    y: Pytree
-    f0: Pytree
-    y_new: Pytree  # sweep outputs, stored only for saveat solves (the
-    k_last: Pytree  # Hermite-interpolation primals); `()` otherwise
-
-
-def _make_fast_adjoint_solve(
-    sweep, sweep_bwd, ctrl, max_steps, time_dtype, err_dtype, bwd_precision,
-    saveat=None, axis_name=None,
-):
-    """Specialized adjoint solve for normed fused sweeps: the forward
-    stores the kernel's norm scalars per step, so each backward iteration
-    is ONE backward-kernel call plus a scalar-chain vjp — no
-    forward-kernel replay and no big-array glue. Roughly halves the
-    gradient cost of the flagship step (the general replay's jax.vjp
-    re-runs the forward kernel for primals the telemetry already holds).
-
-    ``saveat`` solves additionally store the sweep outputs (y_new, k_last)
-    per step — the cubic-Hermite primals — so the backward runs the
-    interpolation vjp from stored values, again without replaying the
-    kernel. Under ``axis_name`` the three norm scalars (and the state
-    count) are psum'd exactly as the generic step does, so step control
-    stays globally synchronized and the backward transposes the psum to
-    the correct broadcast.
-
-    Gradient contract: identical ops to the generic step/replay (the
-    scalar chain is rebuilt from the same `_normed_scalars` + controller
-    code), pinned equal to mode="scan" by tests."""
-
-    def _scalar_count(y0):
-        return jnp.asarray(
-            sum(l.size for l in jax.tree_util.tree_leaves(y0)), err_dtype
-        )
-
-    def _global_norms(e, n, d, count):
-        if axis_name is not None:
-            e = lax.psum(e, axis_name)
-            n = lax.psum(n, axis_name)
-            d = lax.psum(d, axis_name)
-            count = lax.psum(count, axis_name)
-        return _normed_scalars(e, n, d, count, err_dtype)
-
-    def _interp(t, dt_eff, y, y_new, f0, k_last):
-        theta = (saveat - t) / jnp.where(dt_eff == 0, 1.0, dt_eff)
-        return _hermite_eval(theta, dt_eff, y, y_new, f0, k_last)
-
-    def _forward(t0, t1, dt_init, y0, f0_init, ys_buf_init, args):
-        tdir = jnp.sign(t1 - t0)
-        span = jnp.abs(t1 - t0)
-        count = _scalar_count(y0)
-        tel0 = StepTelemetry(
-            t=jnp.zeros((max_steps,), time_dtype),
-            dt=jnp.zeros((max_steps,), time_dtype),
-            eest=jnp.zeros((max_steps,), err_dtype),
-            eigen_est=jnp.zeros((max_steps,), err_dtype),
-            accepted=jnp.zeros((max_steps,), bool),
-            live=jnp.zeros((max_steps,), bool),
-        )
-        # `+ l * 0` stamps the template's varying-mesh-axes onto the
-        # history buffer (under shard_map the state rows are per-shard);
-        # XLA folds the dead multiply. The stored norm scalars are LOCAL
-        # (pre-psum) sums, hence also per-shard — stamp them with a
-        # varying zero derived from the state.
-        buf = lambda tree: jax.tree_util.tree_map(
-            lambda l: jnp.zeros((max_steps,) + l.shape, l.dtype) + l * 0, tree
-        )
-        vzero = (jax.tree_util.tree_leaves(y0)[0].ravel()[0] * 0).astype(
-            err_dtype)
-        hist0 = _FastHist(
-            t=jnp.zeros((max_steps,), time_dtype),
-            dt=jnp.zeros((max_steps,), time_dtype),
-            qold=jnp.zeros((max_steps,), err_dtype),
-            err_ssq=jnp.zeros((max_steps,), err_dtype) + vzero,
-            num_ssq=jnp.zeros((max_steps,), err_dtype) + vzero,
-            den_ssq=jnp.zeros((max_steps,), err_dtype) + vzero,
-            y=buf(y0),
-            f0=buf(f0_init),
-            y_new=buf(y0) if saveat is not None else (),
-            k_last=buf(f0_init) if saveat is not None else (),
-        )
-        init = _Carry(
-            t=t0, dt=dt_init,
-            qold=jnp.asarray(ctrl.qoldinit, err_dtype),
-            y=y0, f0=f0_init,
-            done=span == 0,
-            step=jnp.asarray(0, jnp.int32),
-            naccept=jnp.asarray(0, jnp.int32),
-            nreject=jnp.asarray(0, jnp.int32),
-            ys_buf=ys_buf_init,
-        )
-
-        def cond(state):
-            carry, _, _ = state
-            return (~carry.done) & (carry.step < max_steps)
-
-        def body(state):
-            carry, tel, hist = state
-            i = carry.step
-            t, dt, qold, y, f0 = (carry.t, carry.dt, carry.qold, carry.y,
-                                  carry.f0)
-            remaining = t1 - t
-            is_last = (dt - remaining) * tdir >= 0
-            dt_eff = jnp.where(is_last, remaining, dt)
-            res = sweep(t, dt_eff, y, f0, args)
-            e = res.err_ssq.astype(err_dtype)
-            n = res.eig_num_ssq.astype(err_dtype)
-            d = res.eig_den_ssq.astype(err_dtype)
-            eest, eigen_est = _global_norms(e, n, d, count)
-            accept = eest <= 1.0
-            dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
-            dt_next = jnp.sign(dt_next) * jnp.minimum(jnp.abs(dt_next), span)
-            t_new = jnp.where(accept, jnp.where(is_last, t1, t + dt_eff), t)
-            y_out = tree_where(accept, res.y_new, y)
-            f0_out = tree_where(accept, res.k_last, f0)
-
-            ys_buf = carry.ys_buf
-            if saveat is not None:
-                t_end = jnp.where(is_last, t1, t + dt_eff)
-                in_window = (
-                    accept
-                    & ((saveat - t) * tdir > 0)
-                    & ((saveat - t_end) * tdir <= 0)
-                )
-                y_interp = _interp(t, dt_eff, y, res.y_new, f0, res.k_last)
-                ys_buf = jax.tree_util.tree_map(
-                    lambda b, yi: jnp.where(
-                        in_window.reshape((-1,) + (1,) * (b.ndim - 1)), yi, b
-                    ),
-                    ys_buf,
-                    y_interp,
-                )
-
-            setrow = lambda bt, vt: jax.tree_util.tree_map(
-                lambda b, l: b.at[i].set(l), bt, vt)
-            hist = _FastHist(
-                t=hist.t.at[i].set(t),
-                dt=hist.dt.at[i].set(dt),
-                qold=hist.qold.at[i].set(qold),
-                err_ssq=hist.err_ssq.at[i].set(e),
-                num_ssq=hist.num_ssq.at[i].set(n),
-                den_ssq=hist.den_ssq.at[i].set(d),
-                y=setrow(hist.y, y),
-                f0=setrow(hist.f0, f0),
-                y_new=(setrow(hist.y_new, res.y_new)
-                       if saveat is not None else ()),
-                k_last=(setrow(hist.k_last, res.k_last)
-                        if saveat is not None else ()),
-            )
-            tel = StepTelemetry(
-                t=tel.t.at[i].set(
-                    jnp.where(is_last, t1, t + dt_eff).astype(time_dtype)),
-                dt=tel.dt.at[i].set(dt_eff),
-                eest=tel.eest.at[i].set(eest),
-                eigen_est=tel.eigen_est.at[i].set(eigen_est),
-                accepted=tel.accepted.at[i].set(accept),
-                live=tel.live.at[i].set(True),
-            )
-            carry2 = _Carry(
-                t=t_new.astype(time_dtype),
-                dt=dt_next,
-                qold=qold_next,
-                y=y_out,
-                f0=f0_out,
-                done=accept & is_last,
-                step=i + 1,
-                naccept=carry.naccept + accept.astype(jnp.int32),
-                nreject=carry.nreject + (~accept).astype(jnp.int32),
-                ys_buf=ys_buf,
-            )
-            return carry2, tel, hist
-
-        final, tel, hist = lax.while_loop(cond, body, (init, tel0, hist0))
-        outs = (final.y, final.ys_buf, tel, final.t, final.dt, final.qold,
-                final.naccept, final.nreject, final.done)
-        return outs, hist
-
-    @jax.custom_vjp
-    def solve(t0, t1, dt_init, y0, f0_init, ys_buf_init, args):
-        outs, _ = _forward(t0, t1, dt_init, y0, f0_init, ys_buf_init, args)
-        return outs
-
-    def solve_fwd(t0, t1, dt_init, y0, f0_init, ys_buf_init, args):
-        outs, hist = _forward(t0, t1, dt_init, y0, f0_init, ys_buf_init, args)
-        nsteps = outs[6] + outs[7]
-        return outs, (hist, outs[2], nsteps, t0, t1, y0, f0_init,
-                      ys_buf_init, args)
-
-    def solve_bwd(res, cts):
-        if bwd_precision is not None:
-            with jax.default_matmul_precision(bwd_precision):
-                return _solve_bwd_impl(res, cts)
-        return _solve_bwd_impl(res, cts)
-
-    def _solve_bwd_impl(res, cts):
-        (hist, tel, nsteps, t0, t1, y0, f0_init, ys_buf_init, args) = res
-        (ct_y1, ct_ysbuf, ct_tel, ct_tf, ct_dtf, ct_qoldf,
-         _na, _nr, _done) = cts
-        tdir = jnp.sign(t1 - t0)
-        count = _scalar_count(y0)
-        zlike = lambda tr: jax.tree_util.tree_map(jnp.zeros_like, tr)
-
-        ct_tel_t = _materialize(ct_tel.t, jnp.zeros((max_steps,), time_dtype))
-        ct_tel_dt = _materialize(ct_tel.dt, jnp.zeros((max_steps,), time_dtype))
-        ct_tel_e = _materialize(ct_tel.eest, jnp.zeros((max_steps,), err_dtype))
-        ct_tel_g = _materialize(
-            ct_tel.eigen_est, jnp.zeros((max_steps,), err_dtype))
-
-        span = jnp.abs(t1 - t0)
-
-        def post(t, dt_eff, qold, e, n, d, t1_, span_, is_last):
-            eest, eigen = _global_norms(e, n, d, count)
-            accept = eest <= 1.0
-            dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
-            dt_next = jnp.sign(dt_next) * jnp.minimum(jnp.abs(dt_next), span_)
-            t_new = jnp.where(accept, jnp.where(is_last, t1_, t + dt_eff), t)
-            tel_t = jnp.where(is_last, t1_, t + dt_eff).astype(time_dtype)
-            return (t_new.astype(time_dtype), dt_next, qold_next, tel_t,
-                    eest, eigen)
-
-        carry0 = (
-            nsteps - 1,
-            _materialize(ct_tf, jnp.zeros((), time_dtype)),
-            _materialize(ct_dtf, jnp.zeros((), time_dtype)),
-            _materialize(ct_qoldf, jnp.zeros((), err_dtype)),
-            _materialize_tree(ct_y1, y0),
-            zlike(f0_init),
-            _materialize_tree(ct_ysbuf, ys_buf_init),
-            zlike(args),
-            jnp.zeros((), time_dtype),  # acc ct t1
-            jnp.zeros((), time_dtype),  # acc ct span
-        )
-
-        def cond(state):
-            return state[0] >= 0
-
-        def body(state):
-            (i, ct_t, ct_dt, ct_qold, ct_y, ct_f0, ct_ys, ct_args,
-             ct_t1x, ct_spanx) = state
-            row = lambda tr: jax.tree_util.tree_map(lambda b: b[i], tr)
-            t_i, dt_i, qold_i = hist.t[i], hist.dt[i], hist.qold[i]
-            e_i, n_i, d_i = hist.err_ssq[i], hist.num_ssq[i], hist.den_ssq[i]
-            y_i, f0_i = row(hist.y), row(hist.f0)
-            acc = tel.accepted[i]
-            remaining = t1 - t_i
-            is_last = (dt_i - remaining) * tdir >= 0
-            dt_eff = jnp.where(is_last, remaining, dt_i)
-
-            # array selects: y_out = where(acc, y_new, y); f0_out likewise
-            ct_ynew = tree_where(acc, ct_y, zlike(ct_y))
-            ct_y_pass = tree_where(acc, zlike(ct_y), ct_y)
-            ct_k7 = tree_where(acc, ct_f0, zlike(ct_f0))
-            ct_f0_pass = tree_where(acc, zlike(ct_f0), ct_f0)
-
-            di_t = jnp.zeros((), time_dtype)
-            di_dteff = jnp.zeros((), time_dtype)
-            di_y = zlike(ct_y)
-            di_f0 = zlike(ct_f0)
-            ct_ys_next = ct_ys
-            if saveat is not None:
-                # Hermite-interpolation vjp from the stored primals. The
-                # save-window mask (incl. accept) already zeroes the
-                # cotangent rows of steps that wrote nothing.
-                ynew_i, klast_i = row(hist.y_new), row(hist.k_last)
-                t_end = jnp.where(is_last, t1, t_i + dt_eff)
-                in_window = (
-                    acc
-                    & ((saveat - t_i) * tdir > 0)
-                    & ((saveat - t_end) * tdir <= 0)
-                )
-                mk = lambda c: in_window.reshape(
-                    (-1,) + (1,) * (c.ndim - 1))
-                ct_interp = jax.tree_util.tree_map(
-                    lambda c: jnp.where(mk(c), c, 0.0), ct_ys)
-                ct_ys_next = jax.tree_util.tree_map(
-                    lambda c: jnp.where(mk(c), 0.0, c), ct_ys)
-                _, vjp_i = jax.vjp(
-                    _interp, t_i, dt_eff, y_i, ynew_i, f0_i, klast_i)
-                (di_t, di_dteff, di_y, di_ynew, di_f0,
-                 di_klast) = vjp_i(ct_interp)
-                ct_ynew = jax.tree_util.tree_map(jnp.add, ct_ynew, di_ynew)
-                ct_k7 = jax.tree_util.tree_map(jnp.add, ct_k7, di_klast)
-
-            # scalar chain (controller / time update / telemetry)
-            _, vjp_post = jax.vjp(
-                post, t_i, dt_eff, qold_i, e_i, n_i, d_i, t1, span, is_last
-            )
-            (dp_t, dp_dteff, dp_qold, ct_e, ct_n, ct_d, dp_t1, dp_span,
-             _dp_last) = vjp_post(
-                (ct_t, ct_dt, ct_qold, ct_tel_t[i], ct_tel_e[i], ct_tel_g[i])
-            )
-
-            # ONE backward-kernel call; the telemetry holds all primals
-            k_ct_t, k_ct_dteff, ct_y_k, ct_k1, ct_args_i = sweep_bwd(
-                t_i, dt_eff, y_i, f0_i, args,
-                (ct_ynew, ct_k7, ct_e, ct_n, ct_d),
-            )
-
-            # dt_eff = where(is_last, t1 - t, dt)
-            ct_dteff = dp_dteff + k_ct_dteff + ct_tel_dt[i] + di_dteff
-            d_t_pre = jnp.where(is_last, -ct_dteff, 0.0)
-            d_dt_pre = jnp.where(is_last, 0.0, ct_dteff)
-            d_t1_pre = jnp.where(is_last, ct_dteff, 0.0)
-
-            return (
-                i - 1,
-                (dp_t + k_ct_t + d_t_pre + di_t).astype(time_dtype),
-                d_dt_pre.astype(time_dtype),
-                dp_qold,
-                jax.tree_util.tree_map(
-                    lambda a, b, c: a + b + c, ct_y_pass, ct_y_k, di_y),
-                jax.tree_util.tree_map(
-                    lambda a, b, c: a + b + c, ct_f0_pass, ct_k1, di_f0),
-                ct_ys_next,
-                jax.tree_util.tree_map(jnp.add, ct_args, ct_args_i),
-                ct_t1x + dp_t1 + d_t1_pre,
-                ct_spanx + dp_span,
-            )
-
-        (_, ct_t, ct_dt, ct_qold, ct_y, ct_f0, ct_ys, ct_args,
-         ct_t1x, ct_spanx) = lax.while_loop(cond, body, carry0)
-
-        # span = |t1 - t0|
-        ct_t1x = ct_t1x + tdir * ct_spanx
-        ct_t0 = ct_t - tdir * ct_spanx
-        return (ct_t0, ct_t1x, ct_dt, ct_y, ct_f0, ct_ys, ct_args)
-
-    solve.defvjp(solve_fwd, solve_bwd)
-    return solve
-
-
 def _stamp_like(ref_tree, val_tree):
     """Stamp every leaf of ``val_tree`` with the varying-manual-axes of
     ``ref_tree``'s first leaf (a no-op outside shard_map).
@@ -1154,7 +764,6 @@ def odeint(
     axis_name: Optional[str] = None,
     matmul_precision: Optional[str] = "highest",
     stage_sweep: Optional[Callable] = None,
-    stage_sweep_bwd: Optional[Callable] = None,
     compensated_eest: bool = False,
     _bwd_precision: Optional[str] = None,
 ) -> ODESolution:
@@ -1188,11 +797,11 @@ def odeint(
       axis_name: mesh axis for globally synchronized step control under
         ``shard_map`` data parallelism.
       matmul_precision: matmul precision for everything inside the solve.
-        TPU MXUs default to bfloat16 multiplies, whose rounding noise
-        (~4e-3 relative) would swamp the embedded error estimate at tight
-        tolerances — the controller then grinds dt to the noise floor and
-        NFE explodes ~25x. ``"highest"`` (default) makes the tolerance
-        meaningful on TPU and is a no-op on CPU; pass ``None`` to keep the
+        The GPU runs float32 matmuls in TF32 by default, whose rounding
+        noise (~1e-3 relative) would swamp the embedded error estimate at
+        tight tolerances — the controller then grinds dt to the noise
+        floor and NFE explodes. ``"highest"`` (default) keeps full float32
+        on the GPU and is a no-op on CPU; pass ``None`` to keep the
         ambient precision for loose-tolerance speed runs.
     """
     if matmul_precision is not None:
@@ -1203,7 +812,6 @@ def odeint(
                 max_steps=max_steps, saveat=saveat, controller=controller,
                 mode=mode, remat=remat, axis_name=axis_name,
                 matmul_precision=None, stage_sweep=stage_sweep,
-                stage_sweep_bwd=stage_sweep_bwd,
                 compensated_eest=compensated_eest,
                 _bwd_precision=matmul_precision,
             )
@@ -1211,7 +819,7 @@ def odeint(
     if solver == "rosenbrock23":
         # Stiff path: ode23s W-method plugged in through the stage_sweep
         # contract — same controller, telemetry, saveat, and AD engines.
-        if stage_sweep is not None or stage_sweep_bwd is not None:
+        if stage_sweep is not None:
             raise ValueError(
                 "solver='rosenbrock23' provides its own stage sweep")
         from regneuralde_tpu.ops.rosenbrock import (
@@ -1233,11 +841,7 @@ def odeint(
                 "auto_* composites support mode='adjoint' (training fast "
                 "path; switching state rides the adjoint history), "
                 "'scan' (oracle) or 'while'")
-        if mode == "adjoint" and (stage_sweep is not None
-                                  or stage_sweep_bwd is not None):
-            raise ValueError(
-                "auto_* composites provide their own stage sweeps")
-        if stage_sweep is not None or stage_sweep_bwd is not None:
+        if stage_sweep is not None:
             raise ValueError(
                 "auto_* composites provide their own stage sweeps")
         tab = get_tableau(ns_name)
@@ -1318,7 +922,7 @@ def odeint(
                              or solver == "rosenbrock23"):
         raise ValueError(
             "compensated_eest applies to the generic explicit-RK sweep "
-            "only (no fused stage_sweep, no rosenbrock/auto_* solvers)")
+            "only (no stage_sweep, no rosenbrock/auto_* solvers)")
     step_fn, noop_fn = _make_step_fn(
         func, args, tab, ctrl, t1, tdir, span, rtol, atol, saveat, axis_name,
         stage_sweep=stage_sweep, compensated=compensated_eest,
@@ -1342,31 +946,6 @@ def odeint(
         init = init._replace(aux=(zero_i, zero_i, zero_i))
 
     if mode == "adjoint":
-        fast = stage_sweep is not None and stage_sweep_bwd is not None
-        if auto_composite:
-            fast = False
-        if fast:
-            solve = _make_fast_adjoint_solve(
-                stage_sweep, stage_sweep_bwd, ctrl, max_steps,
-                time_dtype, err_dtype, _bwd_precision,
-                saveat=saveat, axis_name=axis_name,
-            )
-            ys_init = ys_buf if ys_buf is not None else ()
-            (y1, ys_out, tel, _tf, _dtf, _qoldf, naccept, nreject,
-             done) = solve(t0, t1, init.dt, y0, f_init, ys_init, args)
-            nsteps = naccept + nreject
-            stats = ODEStats(
-                nfe=jnp.asarray(nfe_init, jnp.int32)
-                + (tab.num_stages - 1) * nsteps,
-                naccept=naccept, nreject=nreject, success=done,
-            )
-            return ODESolution(
-                y1=y1,
-                ys=ys_out if saveat is not None else None,
-                ts=saveat,
-                stats=stats,
-                telemetry=tel,
-            )
         step_builder = None
         aux0 = ()
         if auto_composite:

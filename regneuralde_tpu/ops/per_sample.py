@@ -8,7 +8,7 @@ solve reports one NFE for the batch. Per-sample mode instead gives every
 batch element its own PI controller: its own error norm, dt sequence,
 accept/reject decisions, telemetry rows, and NFE count.
 
-TPU mapping: the solve is ``jax.vmap`` of the single-sample solve. Under
+Mapping: the solve is ``jax.vmap`` of the single-sample solve. Under
 vmap,
 
 * ``lax.scan`` (mode="scan") stays one bounded loop over ``max_steps``
@@ -18,7 +18,7 @@ vmap,
   unfinished and masks out finished lanes.
 
 Either way the whole batch advances in lockstep iterations of fully
-batched stage sweeps (the dynamics still sees MXU-shaped work every
+batched stage sweeps (the dynamics still sees full batched matmuls every
 iteration), so this stays compiler-friendly: no dynamic shapes, no
 per-sample Python loops. Wall-clock per solve is set by the slowest
 sample; the win over global control is *accounting and accuracy* — easy
@@ -34,8 +34,8 @@ inputs and broadcast the scalar solve time to a row (models.basic._t_row)
 Not supported here (both are global-batch concepts): ``axis_name`` step
 synchronization (per-sample control is already shard-local — under data
 parallelism simply shard the batch; no cross-device step sync is needed
-or wanted) and fused ``stage_sweep`` kernels (their batch tiling assumes
-one shared controller).
+or wanted) and custom ``stage_sweep`` hooks (they compute one shared
+error norm for the whole batch).
 """
 
 from __future__ import annotations
@@ -77,11 +77,11 @@ def _check_tspan(name, arr, batch):
 
 
 def _reject_global_kwargs(kwargs):
-    for key in ("axis_name", "stage_sweep", "stage_sweep_bwd"):
+    for key in ("axis_name", "stage_sweep"):
         if kwargs.get(key) is not None:
             raise ValueError(
                 f"per-sample solves do not accept {key!r}: per-sample "
-                "step control is shard-local by construction and fused "
+                "step control is shard-local by construction and custom "
                 "sweeps assume one shared controller"
             )
         kwargs.pop(key, None)
@@ -134,8 +134,8 @@ def odeint_per_sample(
         sample at its OWN timestamps (e.g. each physionet series'
         observation stamps; the reference forces sample 1's grid on the
         whole batch, experiments/latent_ode.jl:137), and ``sol.ts`` is
-        then ``(batch, n_save)``. ``axis_name`` / ``stage_sweep`` /
-        ``stage_sweep_bwd`` are rejected (see module docstring).
+        then ``(batch, n_save)``. ``axis_name`` / ``stage_sweep`` are
+        rejected (see module docstring).
 
     Returns:
       An :class:`ODESolution` whose array conventions match the batched
@@ -182,21 +182,11 @@ def odeint_per_sample(
         # differs (vmap sums leaf-by-leaf; the adapter reduces one row),
         # so a borderline accept can flip and move a lane by one trial
         # step (tests/test_per_sample.py::TestBatchedPytreeState).
-        if kwargs.get("stage_sweep_lanes") is not None:
-            raise ValueError(
-                "stage_sweep_lanes runs the dynamics directly on the 2-D "
-                "state; pytree states take the generic traced sweep")
-        kwargs.pop("stage_sweep_lanes", None)
         return _odeint_batched_pytree(func, y0, t0, t1, args, batch,
                                       mode=mode, saveat=saveat, **kwargs)
     if engine != "vmap":
         raise ValueError(f"engine must be 'vmap' or 'batched', got "
                          f"{engine!r}")
-    if kwargs.get("stage_sweep_lanes") is not None:
-        raise ValueError(
-            "stage_sweep_lanes is a batched-engine fused sweep; "
-            "engine='vmap' runs the generic per-lane solve")
-    kwargs.pop("stage_sweep_lanes", None)
 
     # Each lane keeps a singleton batch axis so batched dynamics modules
     # (which concatenate time rows, run (batch, feat) matmuls, ...) work

@@ -1,17 +1,16 @@
 """Per-lane-controller batched engine for per-sample adaptive stepping.
 
 The vmap engine (:mod:`regneuralde_tpu.ops.per_sample`) is semantically
-exact but pays a TPU-hostile cost: under ``jax.vmap`` each lane's
+exact but pays a heavy cost: under ``jax.vmap`` each lane's
 history/save updates index by that lane's OWN step counter, so XLA
 lowers every per-step ``dynamic_update_slice`` into a full-buffer masked
-update — measured 14.4x slower than global control on the flagship
-shape (``tools/bench_per_sample.py``, round 4).
+update (``tools/bench_per_sample.py`` times the engines side by side).
 
 This engine instead runs per-sample control DIRECTLY on the batched
-state, the way torchode does on GPU (PAPERS.md) re-thought for the MXU:
+state, the way torchode does on GPU (PAPERS.md):
 
 * The whole batch advances in lockstep iterations; the stage sweep stays
-  a full ``(batch, dim)`` MXU matmul every iteration — no per-lane loop,
+  a full ``(batch, dim)`` matmul every iteration — no per-lane loop,
   no singleton batches.
 * Controller state is vectorized per lane: ``t``, ``dt``, ``qold``,
   ``done``, accept/reject, and the tolerance-normalized error norm are
@@ -52,7 +51,7 @@ array state, explicit FSAL tableaus (tsit5/bosh3/dopri5).
 
 Reference relation: the reference solves the whole batch as ONE ODE
 state with one global norm (src/models/neural_ode.jl:62); per-sample
-control is a capability beyond it, costed in BASELINE.md.
+control is a capability beyond it.
 """
 
 from __future__ import annotations
@@ -114,8 +113,7 @@ def _per_lane_initial_dt(func, t0, y0, f0, args, order, rtol, atol, t1):
     return tdir * dt, f1
 
 
-def _make_step_core(func, tab, ctrl, rtol, atol, has_saveat,
-                    stage_sweep_lanes=None):
+def _make_step_core(func, tab, ctrl, rtol, atol, has_saveat):
     """One per-lane-controlled trial step on the full batch.
 
     Returns ``core(t, dt, qold, y, f0c, done, ys_buf, t0v, t1v, saveat,
@@ -127,12 +125,6 @@ def _make_step_core(func, tab, ctrl, rtol, atol, has_saveat,
     otherwise ``ys_buf`` is ``(batch, n_save, dim)`` (internal layout —
     the batch-major write is one dense fused ``where``) and ``saveat``
     is ``(batch, n_save)``.
-
-    ``stage_sweep_lanes``, when given, replaces the traced stage loop
-    with a fused lane-wise kernel (``(t, dt_eff, y, f0c, args) ->
-    (y_new, k7, err, k6, g6)`` with per-lane ``(batch,)`` times/steps —
-    ``ops.pallas_mlp.mlp_dynamics_sweep_lanes``). The kernel carries its
-    own custom_vjp, so both gradient modes differentiate through it.
     """
     n_stages = tab.num_stages
 
@@ -146,40 +138,33 @@ def _make_step_core(func, tab, ctrl, rtol, atol, has_saveat,
         dt_eff = jnp.where(is_last, remaining, dt)
         de = dt_eff[:, None]
 
-        if stage_sweep_lanes is not None:
-            # Fused lane-wise kernel: the whole FSAL sweep (stage
-            # lincombs, per-stage dynamics with per-lane time columns,
-            # regrouped embedded error) in one VMEM-resident pass.
-            y_new, k_last, err, k_prev, g_prev = stage_sweep_lanes(
-                t, dt_eff, y, f0c, args)
-        else:
-            # FSAL stage sweep on the full batch; per-lane dt/t broadcast
-            # as columns. Accumulation order matches ops.norms.tree_lincomb
-            # (k-combination first, one dt multiply, zero coeffs skipped)
-            # and the btilde terms are differenced against k1 (the same
-            # f32 cancellation fix as ops.ode's generic_sweep) so the
-            # per-lane controller sees the same EEst roundoff as the vmap
-            # engine.
-            def lincomb(base, coeffs, kl):
-                nz = [(c, k) for c, k in zip(coeffs, kl) if c != 0.0]
-                if not nz:
-                    return base
-                acc = nz[0][0] * nz[0][1]
-                for c_ij, kj in nz[1:]:
-                    acc = acc + c_ij * kj
-                return base + de * acc
+        # FSAL stage sweep on the full batch; per-lane dt/t broadcast
+        # as columns. Accumulation order matches ops.norms.tree_lincomb
+        # (k-combination first, one dt multiply, zero coeffs skipped)
+        # and the btilde terms are differenced against k1 (the same
+        # f32 cancellation fix as ops.ode's generic_sweep) so the
+        # per-lane controller sees the same EEst roundoff as the vmap
+        # engine.
+        def lincomb(base, coeffs, kl):
+            nz = [(c, k) for c, k in zip(coeffs, kl) if c != 0.0]
+            if not nz:
+                return base
+            acc = nz[0][0] * nz[0][1]
+            for c_ij, kj in nz[1:]:
+                acc = acc + c_ij * kj
+            return base + de * acc
 
-            ks = [f0c]
-            y_stage = y
-            for i in range(1, n_stages):
-                y_stage = lincomb(y, tab.a[i - 1], ks)
-                ks.append(func(t + tab.c[i] * dt_eff, y_stage, args))
-            y_new = y_stage  # b row == last a row (FSAL)
-            g_prev = lincomb(y, tab.a[n_stages - 3], ks[: n_stages - 2])
-            k_last, k_prev = ks[-1], ks[-2]
+        ks = [f0c]
+        y_stage = y
+        for i in range(1, n_stages):
+            y_stage = lincomb(y, tab.a[i - 1], ks)
+            ks.append(func(t + tab.c[i] * dt_eff, y_stage, args))
+        y_new = y_stage  # b row == last a row (FSAL)
+        g_prev = lincomb(y, tab.a[n_stages - 3], ks[: n_stages - 2])
+        k_last, k_prev = ks[-1], ks[-2]
 
-            err = de * sum(
-                c * (kl - ks[0]) for c, kl in zip(tab.btilde[1:], ks[1:]))
+        err = de * sum(
+            c * (kl - ks[0]) for c, kl in zip(tab.btilde[1:], ks[1:]))
         scaled = err / (atol + jnp.maximum(jnp.abs(y), jnp.abs(y_new)) * rtol)
         eest = _row_norm(scaled)
 
@@ -239,8 +224,7 @@ def _make_step_core(func, tab, ctrl, rtol, atol, has_saveat,
 # mode="adjoint": early-exit while_loop forward + custom_vjp backward that
 # replays only the iterations the forward executed (per-lane analogue of
 # ops.ode._make_adjoint_solve — the scan mode's dead iterations past the
-# slowest lane's finish were its measured top remaining cost on the
-# flagship shape, BASELINE.md round 4).
+# slowest lane's finish are pure waste).
 # ---------------------------------------------------------------------------
 
 
@@ -327,11 +311,11 @@ def _make_adjoint_solve(core, ctrl, max_steps, batch, dim, matmul_precision):
     def solve_bwd(res, cts):
         # PRECISION IS LOAD-BEARING: traced lazily OUTSIDE the forward's
         # default_matmul_precision context; the replay re-traces the
-        # dynamics' contractions here. At the TPU bf16 default the
-        # EEst/controller pullback picks up ~4e-3 relative noise that the
+        # dynamics' contractions here. At the GPU's TF32 default (~1e-3
+        # relative) the EEst/controller pullback picks up noise that the
         # ~1/tol amplification turns into garbage gradients (see
-        # ops.ode._make_adjoint_solve and the round-4 batched-engine
-        # on-device regression).
+        # ops.ode._make_adjoint_solve and the batched-engine chip test in
+        # tests/test_on_device.py).
         if matmul_precision is not None:
             with jax.default_matmul_precision(matmul_precision):
                 return _solve_bwd_impl(res, cts)
@@ -423,7 +407,6 @@ def odeint_per_sample_batched(
     controller: Optional[PIController] = None,
     remat: bool = True,
     matmul_precision: Optional[str] = "highest",
-    stage_sweep_lanes: Optional[Callable] = None,
 ) -> ODESolution:
     """Integrate every batch row under its own adaptive controller, as
     one dense batched program (see module docstring).
@@ -438,32 +421,27 @@ def odeint_per_sample_batched(
     iterations; the default) or ``"scan"`` (bounded remat'd scan, traced
     AD, twice-differentiable).
 
-    ``matmul_precision`` mirrors :func:`odeint`'s default: TPU bf16 dots
-    flood the embedded error estimate at tight tolerances and EVERY lane
-    caps out (measured round 4: per-lane NFE 578 == the max_steps cap at
-    rtol=1.4e-8 until this context was added). Both the traced scan
-    gradient and the adjoint mode's lazily-traced backward bake it in.
+    ``matmul_precision`` mirrors :func:`odeint`'s default: reduced-
+    precision dots (TF32 on the GPU) flood the embedded error estimate at
+    tight tolerances and every lane runs to the ``max_steps`` cap. Both
+    the traced scan gradient and the adjoint mode's lazily-traced
+    backward bake it in.
     """
     if mode not in ("adjoint", "scan"):
         raise ValueError(
             f"mode must be 'adjoint' or 'scan' for the batched per-sample "
             f"engine, got {mode!r} (engine='vmap' also offers 'while')")
-    if stage_sweep_lanes is not None and solver != "tsit5":
-        raise ValueError(
-            "stage_sweep_lanes implements the Tsit5 stage algebra; "
-            f"got solver={solver!r}")
     if matmul_precision is not None:
         with jax.default_matmul_precision(matmul_precision):
             return _run(func, y0, t0, t1, args, solver, rtol, atol, dt0,
                         max_steps, mode, saveat, controller, remat,
-                        matmul_precision, stage_sweep_lanes)
+                        matmul_precision)
     return _run(func, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps,
-                mode, saveat, controller, remat, None, stage_sweep_lanes)
+                mode, saveat, controller, remat, None)
 
 
 def _run(func, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, mode,
-         saveat, controller, remat, matmul_precision,
-         stage_sweep_lanes=None):
+         saveat, controller, remat, matmul_precision):
     y0 = jnp.asarray(y0)
     if y0.ndim != 2:
         raise ValueError(
@@ -512,8 +490,7 @@ def _run(func, y0, t0, t1, args, solver, rtol, atol, dt0, max_steps, mode,
         nfe_init = 1
 
     has_saveat = not isinstance(saveat, tuple)
-    core = _make_step_core(func, tab, ctrl, rtol, atol, has_saveat,
-                           stage_sweep_lanes)
+    core = _make_step_core(func, tab, ctrl, rtol, atol, has_saveat)
     n_stages = tab.num_stages
 
     if mode == "adjoint":

@@ -2,13 +2,13 @@
 
 The SDE twin of :mod:`regneuralde_tpu.ops.per_sample_batched`. The vmap
 engine (:func:`regneuralde_tpu.ops.per_sample.sdeint_per_sample`) is
-semantically exact but pays the same TPU-hostile cost class its ODE
-sibling measured at **14.4x** over global control (per-lane
-dynamic-update-slices lower to full-buffer masked updates under vmap).
+semantically exact but pays the same cost class as its ODE sibling
+(per-lane dynamic-update-slices lower to full-buffer masked updates
+under vmap).
 This engine runs per-sample control DIRECTLY on the batched state:
 
 * The whole batch advances in lockstep iterations; every SRI stage
-  evaluation stays a full ``(batch, dim)`` MXU matmul. ``sri_step`` is
+  evaluation stays a full ``(batch, dim)`` matmul. ``sri_step`` is
   shape-generic, so the SAME tableau code the global ``sdeint`` runs is
   reused with per-lane ``(batch, 1)`` time/dt columns — per-lane math is
   op-for-op the vmap engine's.
@@ -20,7 +20,7 @@ This engine runs per-sample control DIRECTLY on the batched state:
   its own collapse-scheme tail ``(h, w, z)`` (``ops.sde._Tail``); one
   lane's rejection never perturbs another's increments. The fresh
   normal draws are PRESAMPLED per lane with the exact key chain
-  ``sdeint`` consumes (``pallas_sde.presample_noise`` under ``vmap``
+  ``sdeint`` consumes (``sde.presample_noise`` under ``vmap``
   over ``jax.random.split(key, batch)``), so lane *i* reproduces
   ``sdeint(..., key=split(key, batch)[i])`` on that sample alone,
   draw for draw — the vmap engine's documented contract.
@@ -49,7 +49,8 @@ batch ``trajectories x`` and solves under ONE global controller
 (src/models/supervised_classification.jl:92, src/models/neural_sde.jl:44-114);
 per-trajectory control is a capability beyond it — and exactly the
 workload class where one unlucky trajectory otherwise throttles the
-whole fan-out. Cost vs global control is recorded in BASELINE.md.
+whole fan-out. ``tools/bench_per_sample_sde.py`` times it against
+global control.
 """
 
 from __future__ import annotations
@@ -92,10 +93,10 @@ def _presample_lanes(key: jax.Array, batch: int, dim: int, dtype,
                      max_steps: int):
     """Per-lane presampled fresh draws ``(max_steps, batch, dim)`` with
     the exact per-lane key chain the vmap engine consumes: lane *i*'s
-    rows are ``pallas_sde.presample_noise(split(key, batch)[i], (1, dim))``
+    rows are ``sde.presample_noise(split(key, batch)[i], (1, dim))``
     — which is itself draw-for-draw ``ops.sde.sdeint``'s split-per-step
-    chain (pinned by tests/test_sde_whole_solve.py)."""
-    from regneuralde_tpu.ops.pallas_sde import presample_noise
+    chain (pinned by tests/test_sde.py)."""
+    from regneuralde_tpu.ops.sde import presample_noise
 
     keys = jax.random.split(key, batch)
     xw, xz = jax.vmap(

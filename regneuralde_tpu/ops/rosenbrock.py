@@ -10,10 +10,10 @@ OrdinaryDiffEq ships as ``Rosenbrock23``), plugged into the SAME adaptive
 loop, controller, telemetry, saveat interpolation, and autodiff engines
 as the explicit tableaus via the ``stage_sweep`` contract.
 
-TPU mapping: the per-sample Jacobian is materialised as a batched
+Mapping: the per-sample Jacobian is materialised as a batched
 ``(batch, dim, dim)`` tensor by pushing the ``dim`` basis tangents
 through one ``vmap`` of ``jvp`` (dim forward-mode evaluations of the
-*batched* dynamics — MXU-friendly, no per-sample Python loop), and the
+*batched* dynamics — matmul-shaped, no per-sample Python loop), and the
 three stage solves reuse ONE batched LU factorisation of
 ``W = I - d*h*J``. Everything is traced, so ``mode="scan"`` gradients
 (including through the LU) come out of autodiff directly.

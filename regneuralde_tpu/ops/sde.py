@@ -5,12 +5,12 @@ adaptive, stability-optimized strong-order-1.5 SRI method with
 rejection-safe Brownian bridging — and harvests ``EEst * dt`` per accepted
 step via ``SavingCallback`` while counting drift/diffusion evaluations with
 manual closure counters (reference: src/models/neural_sde.jl:44-114,
-experiments/mnist_nsde.jl:45-65). This module provides the TPU-native
+experiments/mnist_nsde.jl:45-65). This module provides the XLA
 equivalents:
 
 * ``solver="sosri" | "sosri2" | "sriw1"``: tableau-driven SRI methods
   (strong order 1.5, diagonal noise) from ``ops.sri`` — the
-  stability-optimized SOSRI-TPU/SOSRI2-TPU tableaus (derived in
+  stability-optimized SOSRI-opt/SOSRI2-opt tableaus (derived in
   tools/derive_sosri.py; the counterparts of StochasticDiffEq's
   SOSRI/SOSRI2) and Rößler's SRIW1 — with the natural-embedding error
   estimate (Rackauckas & Nie 2017) ``E = delta*dt*sum(e_drift_i f_i) +
@@ -26,7 +26,7 @@ equivalents:
   entered rejected trial computations).
 * NFE accounting: per-trial-step drift/diffusion evaluation counts come
   from the tableau's static stage analysis (``nfe1``/``nfe2``, mirroring
-  the reference's manual counters) — 2+4 for SRIW1, 4+4 for SOSRI-TPU.
+  the reference's manual counters) — 2+4 for SRIW1, 4+4 for SOSRI-opt.
 
 The solve is one bounded ``lax.scan`` with masks (differentiable — the
 discrete adjoint through accepted and rejected steps, like the reference's
@@ -106,6 +106,30 @@ def _normal_like(key: jax.Array, tree: Pytree) -> Pytree:
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
+def presample_noise(key: jax.Array, shape, dtype, max_steps: int):
+    """The (xi_w, xi_z) N(0,1) draws :func:`sdeint` would make, one
+    pair per trial step, reproducing its exact key chain
+    (``split(carry.key)`` -> ``split(sub)`` -> ``_normal_like``'s
+    per-leaf split). Shape ``(max_steps,) + shape`` each.
+
+    Only the (scalar-cheap) key chain is sequential; the actual sampling
+    is one vmapped batch, so no per-step ``normal`` call sits in a loop."""
+
+    def chain(k, _):
+        k_next, sub = jax.random.split(k)
+        return k_next, sub
+
+    _, subs = lax.scan(chain, key, None, length=max_steps)
+
+    def draw(sub):
+        kw, kz = jax.random.split(sub)
+        xw = jax.random.normal(jax.random.split(kw, 1)[0], shape, dtype)
+        xz = jax.random.normal(jax.random.split(kz, 1)[0], shape, dtype)
+        return xw, xz
+
+    return jax.vmap(draw)(subs)
+
+
 def _tree_fma(a: Pytree, s, b: Pytree) -> Pytree:
     """a + s * b, leafwise (s scalar)."""
     return jax.tree_util.tree_map(lambda x, y: x + s * y, a, b)
@@ -129,7 +153,7 @@ def _sample_increment(key, tail: _Tail, dt):
     # exactly 0 when a step consumes the committed tail exactly — e.g. a
     # rejected is_last trial leaves a tail reaching t1, and the accepted
     # retry's final step spans the remainder (dt == h). Same double-where
-    # pattern as ops.ode._normed_scalars.
+    # pattern as ops.norms.hairer_norm.
     var = jnp.maximum(var, 0.0)
     std = jnp.where(var > 0, jnp.sqrt(jnp.where(var > 0, var, 1.0)), 0.0)
 
@@ -359,8 +383,8 @@ def sdeint(
     step). The minibatch is one SDE state with one global error norm, as in
     the reference; Monte-Carlo trajectory fan-out is done by the caller by
     tiling the batch axis (reference: src/models/supervised_classification.jl:92).
-    ``matmul_precision``: see ``odeint`` — keeps TPU bf16 matmul noise out
-    of the embedded error estimate.
+    ``matmul_precision``: see ``odeint`` — keeps reduced-precision (TF32
+    on the GPU) matmul noise out of the embedded error estimate.
 
     ``brownian``: rejection-bridge bookkeeping. ``"collapse"`` (default)
     keeps ONE committed tail and discards the remainder on an
@@ -370,8 +394,8 @@ def sdeint(
     StochasticDiffEq's adaptive solvers default to): every observed
     Brownian value stays binding; supported in ``mode="scan"``/
     ``"while"`` (scan differentiates through it; the custom-vjp adjoint
-    and the fused kernels keep the collapse scheme — their per-step
-    history stores one tail, not a stack).
+    keeps the collapse scheme — its per-step history stores one tail,
+    not a stack).
     """
     if matmul_precision is not None:
         with jax.default_matmul_precision(matmul_precision):

@@ -3,8 +3,8 @@
 The reference solves neural SDEs with ``StochasticDiffEq.SOSRI()`` /
 ``AutoSOSRI2(SOSRI2())`` — adaptive strong-order-1.5 SRI methods with
 stability-optimized tableaus (reference: src/models/neural_sde.jl:54-55,
-experiments/mnist_nsde.jl:45-65). This module owns that layer for the TPU
-build:
+experiments/mnist_nsde.jl:45-65). This module owns that layer for this
+framework:
 
 * A **generic tableau-driven SRI step** (Rößler 2010 class, SIAM J.
   Numer. Anal. 48(3)): for stages i = 1..s
@@ -35,7 +35,7 @@ build:
   ``delta`` the embedding weight (1/6, SRIW1's documented default).
 
 * **Tableaus**: ``SRIW1`` (Rößler 2010's exact rational constants) and
-  ``SOSRI-TPU`` / ``SOSRI2-TPU`` — stability-optimized 4-stage tableaus
+  ``SOSRI-opt`` / ``SOSRI2-opt`` — stability-optimized 4-stage tableaus
   derived in-repo (tools/derive_sosri.py) by maximizing the negative
   real-axis deterministic stability region subject to the full set of
   diagonal-noise strong-order-1.5 conditions (numerically verified: see
@@ -404,8 +404,8 @@ def stability_size(tab: SRITableau) -> float:
 #: real-axis stability interval 12.00 (vs SRIW1's 2.0) with an interior
 #: damping band |R| <= 0.99. Fills the role of StochasticDiffEq.SOSRI
 #: (reference: src/models/neural_sde.jl:54).
-SOSRI_TPU = SRITableau(
-    name='sosri-tpu',
+SOSRI_OPT = SRITableau(
+    name='sosri-opt',
     c0=(0.0, 0.13448144584742838, 0.5485519200457587, 0.7932189876313653),
     c1=(0.0, 0.25, 1.0, 0.25),
     A0=((0.0, 0.0, 0.0, 0.0), (0.13448144584742838, 0.0, 0.0, 0.0), (0.2285111760605295, 0.32004074398522925, 0.0, 0.0), (0.19045545362790142, 0.36819463480493536, 0.23456889919852852, 0.0)),
@@ -423,12 +423,12 @@ SOSRI_TPU = SRITableau(
     order=1.5,
 )
 
-#: Like SOSRI_TPU but optimized under a stronger interior damping band
+#: Like SOSRI_OPT but optimized under a stronger interior damping band
 #: (|R| <= 0.90), stability interval 11.31 — the robust variant whose
 #: stability size normalizes the stiff_est regularizer (the analogue of
 #: alg_stability_size(SOSRI2()), experiments/mnist_nsde.jl:51-61).
-SOSRI2_TPU = SRITableau(
-    name='sosri2-tpu',
+SOSRI2_OPT = SRITableau(
+    name='sosri2-opt',
     c0=(0.0, 0.35919181274394774, 0.42169564004173643, 0.8539113682025239),
     c1=(0.0, 0.25, 1.0, 0.25),
     A0=((0.0, 0.0, 0.0, 0.0), (0.35919181274394774, 0.0, 0.0, 0.0), (0.18866361026211728, 0.23303202977961915, 0.0, 0.0), (0.33973407870957495, 0.3667173445674895, 0.14745994492545939, 0.0)),
@@ -448,8 +448,8 @@ SOSRI2_TPU = SRITableau(
 
 TABLEAUS = {
     "sriw1": SRIW1,
-    "sosri": SOSRI_TPU,
-    "sosri2": SOSRI2_TPU,
+    "sosri": SOSRI_OPT,
+    "sosri2": SOSRI2_OPT,
 }
 
 

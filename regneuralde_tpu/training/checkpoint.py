@@ -11,13 +11,16 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Optional, Tuple
 
-import orbax.checkpoint as ocp
-
 
 class Checkpointer:
     def __init__(self, directory, max_to_keep: int = 3, save_every: int = 1):
         self.directory = Path(directory).absolute()
         self.save_every = save_every
+        # Imported here, not at module level: orbax is an optional extra
+        # and the training package must import without it.
+        import orbax.checkpoint as ocp
+
+        self._ocp = ocp
         self._mgr = ocp.CheckpointManager(
             self.directory,
             options=ocp.CheckpointManagerOptions(
@@ -39,7 +42,7 @@ class Checkpointer:
             payload["opt_state"] = opt_state
         if extra:
             payload["extra"] = extra
-        self._mgr.save(step, args=ocp.args.StandardSave(payload))
+        self._mgr.save(step, args=self._ocp.args.StandardSave(payload))
         self._mgr.wait_until_finished()
 
     def restore_latest(self, template: Any = None) -> Tuple[Optional[int], Any]:
@@ -49,7 +52,7 @@ class Checkpointer:
             return None, None
         if template is not None:
             payload = self._mgr.restore(
-                step, args=ocp.args.StandardRestore(template)
+                step, args=self._ocp.args.StandardRestore(template)
             )
         else:
             payload = self._mgr.restore(step)

@@ -14,15 +14,19 @@ import shutil
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-import yaml
-
 
 def load_config(path) -> Dict[str, Any]:
+    # yaml is imported where it is used: it is an optional extra, and the
+    # training package must import without it.
+    import yaml
+
     with open(path) as f:
         return yaml.safe_load(f)
 
 
 def save_yaml(path, obj) -> None:
+    import yaml
+
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w") as f:
         yaml.safe_dump(obj, f, default_flow_style=False)

@@ -250,15 +250,14 @@ class TestSDEAdjoint:
                                    rtol=1e-3, atol=1e-6)
 
 
-@pytest.mark.skipif(jax.default_backend() == "cpu",
-                    reason="regression is TPU-specific (bf16 matmul default)")
+@pytest.mark.chip
 def test_adjoint_grads_survive_accelerator_precision():
     """The adjoint backward is traced outside the forward's
     default_matmul_precision context; without baking the precision into
-    solve_bwd, replayed dynamics contractions run at the accelerator's
-    bf16 default and the controller pullback amplifies the noise into
-    ~60x-wrong parameter gradients (TPU-observed). CPU cannot catch this
-    (its default matmul is exact f32)."""
+    solve_bwd, replayed dynamics contractions run at the GPU's TF32
+    default and the controller pullback amplifies the noise into wrong
+    parameter gradients. CPU cannot catch this (its default matmul is
+    exact f32), so the test runs on the card only."""
     A = jax.random.normal(jax.random.PRNGKey(0), (8, 8)) * 0.3
     y0 = jnp.ones((4, 8))
 

@@ -22,8 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _run_cli(script, tmp_path, extra=()):
-    env = dict(os.environ, REGNDE_PLATFORM="cpu")
-    env.pop("JAX_PLATFORMS", None)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.run(
         [sys.executable, f"experiments/{script}.py",
          "--epochs", "1", "--limit-batches", "1", "--batch-size", "16",
@@ -103,17 +102,16 @@ def test_ffjord_cli_smoke(tmp_path, script):
 
 
 def test_bench_emits_json_line(tmp_path):
-    # bench.py contract for the driver: ONE JSON line with the four keys.
-    env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
+    # bench.py contract: ONE JSON line with the four keys, last. On the
+    # CPU only as a labelled rehearsal.
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     code = (
-        "import jax; jax.config.update('jax_platforms', 'cpu');"
         "import bench, io, contextlib;"
         "bench.BATCH=16; bench.MAX_STEPS=32; bench.MEASURE=2; bench.WARMUP=1;"
         "bench.LATENT_BATCH=16; bench.LATENT_MAX_STEPS=48;"
         "bench.LATENT_MEASURE=1;"
         "buf = io.StringIO();\n"
-        "with contextlib.redirect_stdout(buf): bench.main()\n"
+        "with contextlib.redirect_stdout(buf): bench.main(['--rehearsal'])\n"
         "print(buf.getvalue().strip().splitlines()[-1])"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -124,3 +122,6 @@ def test_bench_emits_json_line(tmp_path):
     assert {"metric", "value", "unit", "vs_baseline"} <= set(obj)
     assert obj["value"] > 0
     assert obj["latent_ode_samples_per_sec"] > 0
+    assert obj["device"]["rehearsal"] is True
+    assert obj["device"]["platform"] == "cpu"
+    assert "REHEARSAL" in proc.stderr

@@ -13,6 +13,7 @@ from regneuralde_tpu.models import (
     CSLDynamics,
     ClassifierNODE,
     ClassifierNSDE,
+    Dense,
     LatentGRU,
     LatentTimeSeriesModel,
     MLPDynamics,
@@ -127,7 +128,7 @@ class TestNeuralSDE:
         p = nsde.init(KEY, x)
         out = nsde(p, x, jax.random.PRNGKey(5))
         assert out.value.shape == (6, 4)
-        # default solver is the 4+4-evaluation SOSRI-TPU tableau
+        # default solver is the 4+4-evaluation SOSRI-opt tableau
         from regneuralde_tpu.ops import sri
 
         tab = sri.get_tableau("sosri")
@@ -206,11 +207,9 @@ class TestFFJORD:
 
 class TestComposites:
     def test_classifier_node(self):
-        import flax.linen as nn
-
         node = NeuralODE(MLPDynamics(dim=8, hidden=6), rtol=1e-3, atol=1e-3,
                          max_steps=64)
-        clf = ClassifierNODE(None, node, nn.Dense(3))
+        clf = ClassifierNODE(None, node, Dense(3))
         x = jax.random.normal(KEY, (4, 8))
         p = clf.init(KEY, x)
         out = clf(p, x)
@@ -224,26 +223,22 @@ class TestComposites:
                    for l in jax.tree_util.tree_leaves(g))
 
     def test_classifier_nsde_trajectories(self):
-        import flax.linen as nn
-
         nsde = NeuralSDE(MLP(features=(8, 4)), MLP(features=(4,)),
                          rtol=0.3, atol=0.3, max_steps=64)
-        clf = ClassifierNSDE(nn.Dense(4), nsde, nn.Dense(3))
+        clf = ClassifierNSDE(Dense(4), nsde, Dense(3))
         x = jax.random.normal(KEY, (5, 7))
         p = clf.init(KEY, x)
         out = clf(p, x, jax.random.PRNGKey(9), trajectories=3)
         assert out.logits.shape == (5, 3)
 
     def test_latent_time_series(self):
-        import flax.linen as nn
-
         in_dim, latent = 3, 4
         rnn = LatentGRU(in_dim=in_dim, hidden=6, latent_dim=5)
         enc = MLP(features=(6, 2 * latent))
         node = NeuralODE(AlternatingMLP(dim=latent, hidden=6, depth=1),
                          time_dep=False, rtol=1e-3, atol=1e-3, max_steps=64,
                          saveat=jnp.linspace(0, 1, 6))
-        dec = nn.Dense(in_dim)
+        dec = Dense(in_dim)
         model = LatentTimeSeriesModel(rnn, enc, node, dec)
         xs = jax.random.normal(KEY, (2, 6, 2 * in_dim + 1))
         p = model.init(KEY, xs)

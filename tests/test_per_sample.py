@@ -7,14 +7,14 @@ default engines' global-error-norm semantics mirror the reference,
 src/models/neural_ode.jl:62, and per-sample mode is the strictly-additive
 torchode-style alternative from the build plan)."""
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from regneuralde_tpu import reg
-from regneuralde_tpu.models import MLPDynamics, NeuralODE, NeuralSDE
+from regneuralde_tpu.models import (
+    Dense, MLPDynamics, Module, NeuralODE, NeuralSDE)
 from regneuralde_tpu.ops import (
     odeint,
     odeint_per_sample,
@@ -34,6 +34,24 @@ def oscillator(t, y, args):
 OMEGAS = jnp.array([1.0, 3.0, 20.0])
 Y0 = jnp.stack([jnp.ones(3), jnp.zeros(3), OMEGAS], -1)  # (3 samples, 3)
 KW = dict(rtol=1e-6, atol=1e-6, max_steps=512)
+
+
+class _Drift(Module):
+    """``Dense(dim)(tanh(x))`` with ``dim`` taken from the input."""
+
+    def _init(self, key, x):
+        p = {"dense": Dense(x.shape[-1])._init(key, x)[0]}
+        return p, self._apply(p, x)
+
+    def _apply(self, p, x):
+        return Dense(x.shape[-1])._apply(p["dense"], jnp.tanh(x))
+
+
+class _Diffusion(_Drift):
+    """``0.1 * tanh(Dense(dim)(x))``."""
+
+    def _apply(self, p, x):
+        return 0.1 * jnp.tanh(Dense(x.shape[-1])._apply(p["dense"], x))
 
 
 class TestSolver:
@@ -231,11 +249,6 @@ class TestModelLayer:
         out = node(p, x)
         assert out.value.shape == (3, 5, 4)
 
-    def test_fused_incompatible(self):
-        with pytest.raises(ValueError, match="per_sample"):
-            NeuralODE(MLPDynamics(dim=8, hidden=8), fused=True,
-                      per_sample=True)
-
 
 def sde_drift(t, y, args):
     return -0.5 * y
@@ -343,17 +356,7 @@ class TestSDE:
             np.asarray(gs), np.asarray(ga), rtol=1e-4, atol=1e-6)
 
     def test_neural_sde_per_sample(self):
-        class Drift(nn.Module):
-            @nn.compact
-            def __call__(self, x):
-                return nn.Dense(x.shape[-1])(jnp.tanh(x))
-
-        class Diffusion(nn.Module):
-            @nn.compact
-            def __call__(self, x):
-                return 0.1 * jnp.tanh(nn.Dense(x.shape[-1])(x))
-
-        model = NeuralSDE(Drift(), Diffusion(), rtol=1.4e-1, atol=1.4e-1,
+        model = NeuralSDE(_Drift(), _Diffusion(), rtol=1.4e-1, atol=1.4e-1,
                           max_steps=64, per_sample=True)
         x = jax.random.normal(jax.random.PRNGKey(0), (4, 3)) * 0.5
         p = model.init(jax.random.PRNGKey(1), x)
@@ -361,8 +364,6 @@ class TestSDE:
         assert out.value.shape == (4, 3)
         assert out.nfe1.shape == (4,)
         assert bool(out.solution.stats.success.all())
-        with pytest.raises(ValueError, match="per_sample"):
-            NeuralSDE(Drift(), Diffusion(), fused=True, per_sample=True)
 
 
 class TestBatchedEngine:
@@ -709,17 +710,7 @@ class TestBatchedSDEEngine:
                                    rtol=1e-4, atol=1e-6)
 
     def test_neural_sde_batched_routing(self):
-        class Drift(nn.Module):
-            @nn.compact
-            def __call__(self, x):
-                return nn.Dense(x.shape[-1])(jnp.tanh(x))
-
-        class Diffusion(nn.Module):
-            @nn.compact
-            def __call__(self, x):
-                return 0.1 * jnp.tanh(nn.Dense(x.shape[-1])(x))
-
-        model = NeuralSDE(Drift(), Diffusion(), rtol=1.4e-1, atol=1.4e-1,
+        model = NeuralSDE(_Drift(), _Diffusion(), rtol=1.4e-1, atol=1.4e-1,
                           max_steps=64, per_sample="batched")
         x = jax.random.normal(jax.random.PRNGKey(0), (4, 3)) * 0.5
         p = model.init(jax.random.PRNGKey(1), x)
@@ -798,7 +789,7 @@ class TestBatchedLatentShape:
                          max_steps=64, saveat=sa, per_sample="batched")
         model = LatentTimeSeriesModel(
             rnn=LatentGRU(in_dim=5, hidden=8, latent_dim=10),
-            enc=MLP(features=(10, 2 * 8)), node=node, dec=nn.Dense(5))
+            enc=MLP(features=(10, 2 * 8)), node=node, dec=Dense(5))
         x = jax.random.normal(jax.random.PRNGKey(0), (4, 12, 11)) * 0.3
         p = model.init(jax.random.PRNGKey(1), x)
         out = model(p, x, jax.random.PRNGKey(2), saveat=sa)
@@ -884,108 +875,3 @@ class TestBatchedPytreeState:
             pytest.skip("x64 disabled; dtypes coincide")
         with pytest.raises(ValueError, match="common leaf dtype"):
             odeint_per_sample(f, y0, 0.0, 1.0, w, engine="batched", **kw)
-
-
-class TestBatchedFusedSweep:
-    """The batched per-lane engine riding the LANE-WISE fused stage sweep
-    (round 5, ops.pallas_mlp.mlp_dynamics_sweep_lanes): per-lane t/dt
-    columns through the same VMEM-resident Tsit5 kernel the global
-    step-fused path uses. NeuralODE(per_sample='batched', fused=True) —
-    previously per_sample and fused were mutually exclusive.
-
-    On CPU the kernels run in Pallas interpret mode; on-device behavior
-    (compiled Mosaic, grads bitwise adjoint-vs-scan, 63/64 lanes
-    NFE-equal to the traced sweep at (64, 64)) is pinned by
-    tools/probe_lanes_tpu + the r5 evidence."""
-
-    def _setup(self, batch=8, dim=8, hidden=6):
-        m = MLPDynamics(dim=dim, hidden=hidden)
-        x = jax.random.normal(jax.random.PRNGKey(0), (batch, dim)) * 0.5
-        kw = dict(rtol=1e-4, atol=1e-4, max_steps=64)
-        node_f = NeuralODE(m, per_sample="batched", fused=True, **kw)
-        node_u = NeuralODE(m, per_sample="batched", **kw)
-        p = node_f.init(jax.random.PRNGKey(1), x)
-        return node_f, node_u, x, p
-
-    def test_lane_parity_vs_traced_sweep(self):
-        node_f, node_u, x, p = self._setup()
-        out_f, out_u = node_f(p, x), node_u(p, x)
-        # The kernel's accumulation order differs from the model apply's
-        # concat matmul ([y, t] @ W vs y @ Wx + t*wt) by f32 ulps, so a
-        # borderline accept can flip one trial step on isolated lanes —
-        # the same class as the pytree flatten adapter. Most lanes must
-        # agree exactly.
-        dn = np.abs(np.asarray(out_f.nfe) - np.asarray(out_u.nfe))
-        assert dn.max() <= 6, dn
-        assert (dn == 0).sum() >= x.shape[0] // 2, dn
-        np.testing.assert_allclose(np.asarray(out_f.value),
-                                   np.asarray(out_u.value),
-                                   rtol=3e-3, atol=1e-4)
-
-    def test_adjoint_grads_match_scan_same_program(self):
-        node_f, _, x, p = self._setup()
-
-        def loss(p, mode):
-            out = node_f(p, x, mode=mode)
-            return (jnp.sum(out.value ** 2)
-                    + 0.3 * reg.error_estimate(out.telemetry, agg="mean"))
-
-        ga = jax.grad(lambda p: loss(p, "adjoint"))(p)
-        gs = jax.grad(lambda p: loss(p, "scan"))(p)
-        # Same program, same kernel custom_vjp: only the loop transcript
-        # machinery differs, so agreement is tight (bitwise on-device).
-        for a, b in zip(jax.tree_util.tree_leaves(ga),
-                        jax.tree_util.tree_leaves(gs)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=2e-4, atol=1e-6)
-
-    def test_grads_match_traced_engine(self):
-        node_f, node_u, x, p = self._setup()
-
-        def loss(p, node):
-            out = node(p, x, mode="scan")
-            return (jnp.sum(out.value ** 2)
-                    + 0.3 * reg.error_estimate(out.telemetry, agg="mean"))
-
-        gf = jax.grad(lambda p: loss(p, node_f))(p)
-        gu = jax.grad(lambda p: loss(p, node_u))(p)
-        fa = np.concatenate([np.asarray(l).ravel()
-                             for l in jax.tree_util.tree_leaves(gf)])
-        fb = np.concatenate([np.asarray(l).ravel()
-                             for l in jax.tree_util.tree_leaves(gu)])
-        cos = float(fa @ fb / (np.linalg.norm(fa) * np.linalg.norm(fb)))
-        # A flipped borderline step on one lane moves that lane's reg
-        # stream, so compare by direction, not elementwise.
-        assert cos > 0.999, cos
-
-    def test_saveat_through_fused_sweep(self):
-        node_f, node_u, x, p = self._setup()
-        sa = jnp.linspace(0.0, 1.0, 5)
-        of = node_f(p, x, saveat=sa)
-        ou = node_u(p, x, saveat=sa)
-        assert of.value.shape == (x.shape[0], 5, x.shape[1])
-        np.testing.assert_allclose(np.asarray(of.value),
-                                   np.asarray(ou.value),
-                                   rtol=3e-3, atol=1e-4)
-
-    def test_untileable_batch_keeps_traced_sweep(self):
-        # batch 9: fused_tiling_ok -> one whole-batch block is legal at
-        # this size, so the kernel still runs; the routing just must not
-        # error anywhere in the stack.
-        node_f, _, _, p = self._setup()
-        x9 = jax.random.normal(jax.random.PRNGKey(2), (9, 8)) * 0.5
-        o9 = node_f(p, x9)
-        assert np.isfinite(np.asarray(o9.value)).all()
-
-    def test_vmap_engine_rejects_lanes_sweep(self):
-        with pytest.raises(ValueError, match="per_sample='batched'"):
-            NeuralODE(MLPDynamics(dim=8, hidden=6), per_sample=True,
-                      fused=True, rtol=1e-4, atol=1e-4)
-
-    def test_non_mlp_dynamics_rejected(self):
-        from regneuralde_tpu.models import AlternatingMLP
-
-        with pytest.raises(ValueError, match="MLPDynamics"):
-            NeuralODE(AlternatingMLP(dim=8, hidden=6, depth=2),
-                      time_dep=False, per_sample="batched", fused=True,
-                      rtol=1e-4, atol=1e-4)

@@ -11,7 +11,7 @@ tableau-driven rebuild the hard way:
   diagonal SDE, with (dW, I10) aggregated *exactly* across refinement
   levels (the multilevel coupling that makes the measured slope the
   method's true strong order);
-* stability: the derived SOSRI-TPU/SOSRI2-TPU tableaus have the computed
+* stability: the derived SOSRI-opt/SOSRI2-opt tableaus have the computed
   stability intervals (~12.0 / ~11.3 vs SRIW1's 2.0) and actually remain
   stable on a stiff linear problem where SRIW1's region is exceeded;
 * accounting: per-step NFE counts derive from tableau sparsity.
@@ -66,7 +66,7 @@ def test_nfe_accounting_from_sparsity():
 
 
 def test_stiff_linear_stability():
-    """Fixed-step on y' = lambda*y with lambda*h = -8: inside SOSRI-TPU's
+    """Fixed-step on y' = lambda*y with lambda*h = -8: inside SOSRI-opt's
     stability interval (12.0), far outside SRIW1's (2.0)."""
     z = -8.0
 

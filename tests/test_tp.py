@@ -1,7 +1,7 @@
 """Generic tensor parallelism (parallel.tp.make_tp_dynamics).
 
 Contract: the Megatron-split chain evaluated on local shards inside
-shard_map reproduces the full flax module's output, for every supported
+shard_map reproduces the full module's output, for every supported
 dynamics family, and composes with data parallelism + the adaptive solver
 (2-D dp x tp mesh) through the NeuralODE model layer.
 """
@@ -60,9 +60,9 @@ class TestTPApplyParity:
                                    rtol=2e-5, atol=1e-6)
 
     def test_unsupported_module_raises(self):
-        import flax.linen as nn
+        from regneuralde_tpu.models import Dense
 
-        m = nn.Dense(4)
+        m = Dense(4)
         p = m.init(KEY, jnp.ones((2, 4)))
         with pytest.raises(ValueError, match="tensor-parallel"):
             make_tp_dynamics(m, p)

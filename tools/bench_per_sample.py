@@ -1,21 +1,23 @@
-"""Cost of per-sample adaptive stepping on the flagship (VERDICT-r3 #6).
+"""Cost of per-sample adaptive stepping on the flagship.
 
 Per-sample mode (torchode-style: every batch element gets its own PI
 controller, honest per-sample NFE) is a batch-semantics capability the
 reference lacks (it solves the whole batch as ONE ODE state with one
-global error norm, src/models/neural_ode.jl:62). It runs on its own
-vmap'd unfused engine — excluded from every fused kernel — and until
-now nothing recorded what that costs on the flagship.
+global error norm, src/models/neural_ode.jl:62). This times what it costs
+at the flagship shape.
 
-One process, round-robin medians (the tools/ablate_interleaved.py
-discipline). Each timed call is a full value_and_grad of the flagship
-loss (CE + annealed error_est reg) at batch 512, rtol=atol=1.4e-8:
+One process, round-robin medians. Each timed call is a full
+value_and_grad of the flagship loss (CE + error_est reg) at batch 512,
+rtol=atol=1.4e-8:
 
-  global       the shipped default (fused step kernels + fast adjoint,
-               whole-solve routed)
-  global_unf   global control on the UNFUSED adjoint engine — isolates
-               engine overhead from semantics
-  per_sample   per-sample controllers (vmap'd adjoint)
+  global                   the default: one controller, adjoint engine
+  per_sample               per-sample controllers (vmap'd adjoint)
+  per_sample_batched       per-lane-controller dense engine
+  per_sample_batched_scan  the same engine's bounded-scan gradient
+
+``REGNDE_PS_LEGS=global,per_sample_batched`` selects legs.
+
+    python tools/bench_per_sample.py
 
 Also reports the per-sample NFE distribution (mean/p50/max) vs the
 global solve's single NFE — the honest-cost argument for the mode.
@@ -30,15 +32,14 @@ sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(_P.home() / ".cache" / "regneuralde_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-import flax.linen as nn  # noqa: E402
+from regneuralde_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
 from regneuralde_tpu import reg  # noqa: E402
-from regneuralde_tpu.models import ClassifierNODE, MLPDynamics, NeuralODE  # noqa: E402
+from regneuralde_tpu.models import ClassifierNODE, Dense, MLPDynamics, NeuralODE  # noqa: E402
 
 B, D, H = 512, 784, 100
 RT = 1.4e-8
@@ -55,20 +56,14 @@ def main():
                                       ).ravel()[0])
 
     variants = {
-        "global": dict(fused=True, per_sample=False),
-        "global_unf": dict(fused=False, per_sample=False),
-        "per_sample": dict(fused=False, per_sample=True),
+        "global": dict(per_sample=False),
+        "per_sample": dict(per_sample=True),
         # per-lane-controller dense engine (ops.per_sample_batched).
         # Default mode="adjoint": early-exit while forward + custom_vjp
         # backward over only the executed iterations; the _scan leg pays
-        # all max_steps iterations (the round-4 headroom note).
-        "per_sample_batched": dict(fused=False, per_sample="batched"),
-        "per_sample_batched_scan": dict(fused=False, per_sample="batched",
-                                        mode="scan"),
-        # round 5: the batched engine riding the LANE-WISE fused stage
-        # sweep (per-lane t/dt columns through the VMEM-resident Tsit5
-        # kernel, ops.pallas_mlp.mlp_dynamics_sweep_lanes).
-        "per_sample_batched_fused": dict(fused=True, per_sample="batched"),
+        # all max_steps iterations.
+        "per_sample_batched": dict(per_sample="batched"),
+        "per_sample_batched_scan": dict(per_sample="batched", mode="scan"),
     }
     import os
     legs = os.environ.get("REGNDE_PS_LEGS")
@@ -81,7 +76,7 @@ def main():
         loss_mode = kw.pop("mode", "adjoint")
         node = NeuralODE(MLPDynamics(dim=D, hidden=H), tspan=(0.0, 1.0),
                          time_dep=True, rtol=RT, atol=RT, max_steps=96, **kw)
-        clf = ClassifierNODE(None, node, nn.Dense(10))
+        clf = ClassifierNODE(None, node, Dense(10))
         p = clf.init(jax.random.PRNGKey(1), x)
 
         def loss(p, clf=clf, loss_mode=loss_mode):
@@ -106,7 +101,7 @@ def main():
             sync(out)
             times[n].append((time.perf_counter() - t0) / INNER * 1e3)
 
-    out = {"batch": B, "rtol": RT}
+    out = {"device": jax.devices()[0].device_kind, "batch": B, "rtol": RT}
     for n in fns:
         med = float(np.median(times[n]))
         out[n + "_ms"] = round(med, 3)
@@ -126,9 +121,6 @@ def main():
         if "global" in fns:
             out["per_sample_vs_global"] = round(
                 out["per_sample_ms"] / out["global_ms"], 2)
-        if "global_unf" in fns:
-            out["per_sample_vs_global_unfused"] = round(
-                out["per_sample_ms"] / out["global_unf_ms"], 2)
     if "per_sample_batched" in fns:
         out["nfe_per_sample_batched"] = dist("per_sample_batched")
         if "global" in fns:
@@ -141,15 +133,6 @@ def main():
             out["adjoint_vs_scan_speedup"] = round(
                 out["per_sample_batched_scan_ms"]
                 / out["per_sample_batched_ms"], 2)
-    if "per_sample_batched_fused" in fns:
-        out["nfe_per_sample_batched_fused"] = dist("per_sample_batched_fused")
-        if "global" in fns:
-            out["per_sample_batched_fused_vs_global"] = round(
-                out["per_sample_batched_fused_ms"] / out["global_ms"], 2)
-        if "per_sample_batched" in fns:
-            out["fused_vs_traced_batched_speedup"] = round(
-                out["per_sample_batched_ms"]
-                / out["per_sample_batched_fused_ms"], 2)
     print(json.dumps(out))
 
 

@@ -1,18 +1,16 @@
-"""Latent-shape per-sample cost: batched engine vs vmap vs global
-(VERDICT-r4 #9).
+"""Latent-shape per-sample cost: batched engine vs vmap vs global.
 
-The round-4 batched per-lane engine covered final-state flagship solves;
-round 5 wired its saveat path through LatentTimeSeriesModel. This costs
-per-sample adaptive stepping on the latent-ODE workload (batch 256,
+Costs per-sample adaptive stepping on the latent-ODE workload (batch 256,
 latent-20 AlternatingMLP dynamics decoded at 49 stamps, Tsit5
 rtol=atol=1.4e-8 — the bench.py latent leg's shape): full value_and_grad
 of the masked-LL + KL + EEst*dt loss. One process, round-robin medians,
 scalar-synced.
 
-  global      shared controller, fused generic-builder step kernels
-  global_unf  shared controller, unfused adjoint
+  global      shared controller, adjoint engine
   ps_batched  per-series controllers, dense per-lane engine
   ps_vmap     per-series controllers, vmap engine (known-bad cost class)
+
+    python tools/bench_per_sample_latent.py
 """
 import json
 import sys
@@ -24,16 +22,15 @@ sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(_P.home() / ".cache" / "regneuralde_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-import flax.linen as nn  # noqa: E402
+from regneuralde_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np  # noqa: E402
 
 from regneuralde_tpu import reg  # noqa: E402
 from regneuralde_tpu.data import load_physionet  # noqa: E402
 from regneuralde_tpu.models import (  # noqa: E402
-    MLP, AlternatingMLP, LatentGRU, LatentTimeSeriesModel, NeuralODE)
+    MLP, AlternatingMLP, Dense, LatentGRU, LatentTimeSeriesModel, NeuralODE)
 
 B = 256
 RT = 1.4e-8
@@ -57,11 +54,9 @@ def main():
                                       ).ravel()[0])
 
     variants = {
-        "global": dict(fused=jax.default_backend() != "cpu",
-                       per_sample=False),
-        "global_unf": dict(fused=False, per_sample=False),
-        "ps_batched": dict(fused=False, per_sample="batched"),
-        "ps_vmap": dict(fused=False, per_sample=True),
+        "global": dict(per_sample=False),
+        "ps_batched": dict(per_sample="batched"),
+        "ps_vmap": dict(per_sample=True),
     }
 
     fns = {}
@@ -72,7 +67,7 @@ def main():
                          max_steps=MAX_STEPS, saveat=saveat, **kw)
         model = LatentTimeSeriesModel(
             rnn=LatentGRU(in_dim=37, hidden=40, latent_dim=50),
-            enc=MLP(features=(50, 2 * 20)), node=node, dec=nn.Dense(37))
+            enc=MLP(features=(50, 2 * 20)), node=node, dec=Dense(37))
         if name == "global":
             p0 = model.init(jax.random.PRNGKey(3), x)
         p = p0
@@ -109,7 +104,7 @@ def main():
 
     med = {k: round(float(np.median(v)), 3) for k, v in times.items()}
     print(json.dumps({
-        "backend": jax.default_backend(), "batch": B,
+        "backend": jax.devices()[0].platform, "batch": B,
         **{k + "_ms": v for k, v in med.items()},
         **{k + "_samples_per_sec": round(B / (v / 1e3), 1)
            for k, v in med.items()},

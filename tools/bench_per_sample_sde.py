@@ -1,27 +1,25 @@
-"""Cost of per-sample adaptive SDE stepping on the mnist_nsde fan-out
-(VERDICT-r4 #2).
+"""Cost of per-sample adaptive SDE stepping on the mnist_nsde fan-out.
 
 The reference's ClassifierNSDE repeats each input ``trajectories x`` and
 solves the whole fan-out as ONE SDE state under ONE controller
 (src/models/supervised_classification.jl:92, src/models/neural_sde.jl:44-114)
 — exactly the workload where per-trajectory control pays: one unlucky
-trajectory otherwise throttles every other. Round 4 built the per-lane
-batched ODE engine (1.23x over global); this measures its round-5 SDE
-twin on the mnist_nsde shapes.
+trajectory otherwise throttles every other. This measures the per-lane
+batched SDE engine on the mnist_nsde shapes.
 
-One process, round-robin medians (the ablate_interleaved discipline),
-scalar-synced. Each timed call is a full value_and_grad of CE + error_est
+One process, round-robin medians, scalar-synced. Each timed call is a full value_and_grad of CE + error_est
 reg through the MC fan-out (batch 128 x 4 trajectories = 512 lanes,
 32-dim latent, SOSRI, rtol=atol=1.4e-1 — experiments/mnist_nsde.jl:70-84):
 
   global        one controller for the whole fan-out (the reference's
-                semantics), unfused adjoint engine
-  global_fused  same, whole-solve fused kernel
+                semantics), adjoint engine
   ps_vmap       per-sample controllers + per-lane Brownian paths, vmap
                 engine (the known-bad cost class)
   ps_batched    the per-lane-controller dense engine (mode="adjoint")
 
 Also reports per-lane NFE stats vs the global solve's single NFE.
+
+    python tools/bench_per_sample_sde.py
 """
 import json
 import sys
@@ -33,15 +31,14 @@ sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(_P.home() / ".cache" / "regneuralde_tpu_xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-import flax.linen as nn  # noqa: E402
+from regneuralde_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
 from regneuralde_tpu import reg  # noqa: E402
-from regneuralde_tpu.models import ClassifierNSDE, MLP, NeuralSDE  # noqa: E402
+from regneuralde_tpu.models import ClassifierNSDE, Dense, MLP, NeuralSDE  # noqa: E402
 
 B, TRAJ, LATENT = 128, 4, 32
 RT = 1.4e-1
@@ -60,10 +57,9 @@ def main():
                                       ).ravel()[0])
 
     variants = {
-        "global": dict(fused=False, per_sample=False),
-        "global_fused": dict(fused=True, per_sample=False),
-        "ps_vmap": dict(fused=False, per_sample=True),
-        "ps_batched": dict(fused=False, per_sample="batched"),
+        "global": dict(per_sample=False),
+        "ps_vmap": dict(per_sample=True),
+        "ps_batched": dict(per_sample="batched"),
     }
 
     fns = {}
@@ -72,7 +68,7 @@ def main():
         nsde = NeuralSDE(
             MLP(features=(64, LATENT)), MLP(features=(LATENT,)),
             solver="sosri", rtol=RT, atol=RT, max_steps=MAX_STEPS, **kw)
-        clf = ClassifierNSDE(nn.Dense(LATENT), nsde, nn.Dense(10))
+        clf = ClassifierNSDE(Dense(LATENT), nsde, Dense(10))
         p = clf.init(jax.random.PRNGKey(1), x)
 
         def loss(p, clf=clf):
@@ -106,7 +102,7 @@ def main():
     med = {k: round(float(np.median(v)), 3) for k, v in times.items()}
     lanes = B * TRAJ
     print(json.dumps({
-        "backend": jax.default_backend(),
+        "backend": jax.devices()[0].platform,
         "lanes": lanes,
         **{k + "_ms": v for k, v in med.items()},
         **{k + "_samples_per_sec": round(B / (v / 1e3), 1)

@@ -1,4 +1,4 @@
-"""Derive stability-optimized SRI tableaus (SOSRI-TPU / SOSRI2-TPU).
+"""Derive stability-optimized SRI tableaus (SOSRI-opt / SOSRI2-opt).
 
 The reference integrates neural SDEs with StochasticDiffEq's SOSRI /
 SOSRI2 (reference: src/models/neural_sde.jl:54-55,
@@ -212,7 +212,7 @@ def report(tab, damping):
 
 
 def main():
-    for name, damping in (("sosri-tpu", 0.99), ("sosri2-tpu", 0.90)):
+    for name, damping in (("sosri-opt", 0.99), ("sosri2-opt", 0.90)):
         r3, r4, size_poly = optimize_r34(damping)
         print(f"# phase1 {name}: r3={r3:.17g} r4={r4:.17g} "
               f"poly real-axis size={size_poly:.4f}")

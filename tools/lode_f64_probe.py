@@ -9,7 +9,10 @@ matched parameters (init + after a few f32 training steps), compute the
 regularizer gradient in f32 and in f64 (the ground truth — the x64 solver
 path is test-proven) and report cosine similarity + norm ratio per
 parameter group. cos ~ 1 kills the precision explanation; cos ~ 0
-confirms it. Run on CPU (TPU has no f64).
+confirms it. Runs on the default device (the GPU computes float64 in
+hardware):
+
+    python tools/lode_f64_probe.py [rtol]
 """
 import sys
 from pathlib import Path as _P
@@ -17,17 +20,18 @@ sys.path.insert(0, str(_P(__file__).resolve().parent.parent))
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import optax
-import flax.linen as nn
 
 from regneuralde_tpu import reg
 from regneuralde_tpu.data import load_physionet
-from regneuralde_tpu.models import (MLP, AlternatingMLP, LatentGRU,
+from regneuralde_tpu.models import (MLP, AlternatingMLP, Dense, LatentGRU,
                                     LatentTimeSeriesModel, NeuralODE)
+from regneuralde_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 from regneuralde_tpu.training import create_train_state, latent_ode_optimizer
 
 B = 64
@@ -39,7 +43,7 @@ B = 64
 # noise is NOT tolerance-relative; only loose-tolerance solves whose
 # EEst sits well above f32 cancellation give a clean direction. That
 # rtol=1e-3 regime is where the round-4 vanilla-vs-ERNODE latent
-# training pair demonstrates the NFE-reduction mechanism (BASELINE.md).
+# training pair demonstrates the NFE-reduction mechanism.
 RTOL = float(sys.argv[1]) if len(sys.argv) > 1 else 1.4e-8
 train_loader, _ = load_physionet(B, seed=0)
 batches = []
@@ -76,7 +80,7 @@ def build(dtype, compensated=False, stage_round32=False):
                      saveat=saveat64.astype(dtype))
     model = LatentTimeSeriesModel(
         rnn=LatentGRU(in_dim=37, hidden=40, latent_dim=50),
-        enc=MLP(features=(50, 2 * 20)), node=node, dec=nn.Dense(37))
+        enc=MLP(features=(50, 2 * 20)), node=node, dec=Dense(37))
     return model
 
 
